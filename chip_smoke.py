@@ -12,7 +12,9 @@ times each kernel at its main-path shape, and prints:
 
 * one JSON line per phase;
 * ``{"kernels": [...]}``: each kernel's launches on the main path, largest
-  error against its plain version, time, plain time and least possible time;
+  error against its plain version at the main path's size, time, plain time,
+  library time (where one PyTorch call computes the same) and least possible
+  time;
 * the card's name and power limit, as ``nvidia-smi`` gives them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -48,6 +50,10 @@ STENCIL_TOL = 1e-5  # abs, unit-normal input; the kernel keeps the plain order
 QV_N = 24
 QV_PAIRS = [(0, 1), (1, 0), (23, 0), (5, 17), (17, 5)]
 QV_TOL = 1e-5       # abs on a unit-norm state, and on the norm itself
+# the main path's size, pairs that touch the top bit; error relative to the
+# largest amplitude (a typical one is 2^-15.5 here), norm change absolute
+QV_MAIN_PAIRS = [(30, 0), (0, 30), (5, 17), (17, 5), (0, 1)]
+QV_MAIN_RTOL = 1e-5
 QISKIT_NORM_TOL = 1e-3
 SMALL_RTOL = 1e-5   # card vs CPU checksums on shared small inputs
 
@@ -97,8 +103,8 @@ def phase_build():
     lib = library()
     report = [ln.strip() for ln in lib.ptxas_report.splitlines()
               if "Compiling entry" in ln or "Used" in ln]
-    emit("build", seconds=lib.build_seconds, library=str(lib.path.name),
-         ptxas=report)
+    emit("build", seconds=lib.build_seconds,
+         libraries=[p.name for p in lib.paths], ptxas=report)
 
 
 def phase_kernels_vs_plain() -> dict:
@@ -133,9 +139,33 @@ def phase_kernels_vs_plain() -> dict:
         norm_err = abs(float(torch.linalg.vector_norm(out)) - 1.0)
         check(err <= QV_TOL, f"qv_gate {(q1, q2)} err {err}")
         check(norm_err <= QV_TOL, f"qv_gate {(q1, q2)} norm err {norm_err}")
-        errs["qv_gate"] = max(errs["qv_gate"], err)
         rows.append(dict(kernel="qv_gate", n_qubits=QV_N, pair=[q1, q2],
                          max_abs_err=err, norm_err=norm_err, tol=QV_TOL))
+    del st, out
+
+    # the main path's size: the plain result first, then the kernel in place
+    # on the same state, so the card holds two statevectors and temporaries
+    n = QISKIT["n_qubits"]
+    st = random_state(n, gen)
+    for q1, q2 in QV_MAIN_PAIRS:
+        gate = _random_su4(rng)
+        want = apply_two_qubit_gate_ref(st, gate, q1, q2, n)
+        tol = QV_MAIN_RTOL * float(want.abs().max())
+        norm0 = float(torch.linalg.vector_norm(st))
+        apply_two_qubit_gate(st, gate, q1, q2, n)
+        torch.cuda.synchronize()
+        err = float(want.sub_(st).abs().max())
+        norm_err = abs(float(torch.linalg.vector_norm(st)) - norm0)
+        del want
+        check(err <= tol, f"qv_gate n={n} {(q1, q2)} err {err} > {tol}")
+        check(norm_err <= QV_TOL,
+              f"qv_gate n={n} {(q1, q2)} norm err {norm_err}")
+        errs["qv_gate"] = max(errs["qv_gate"], err)
+        rows.append(dict(kernel="qv_gate", n_qubits=n, pair=[q1, q2],
+                         max_abs_err=err, tol=tol, norm_err=norm_err,
+                         norm_tol=QV_TOL))
+    del st
+    torch.cuda.empty_cache()
     emit("kernel_vs_plain", checks=rows)
     return errs
 
@@ -231,10 +261,11 @@ def phase_timing() -> dict:
     H, W = HOTSPOT["rows"], HOTSPOT["cols"]
     g = torch.randn((H, W), device="cuda", generator=gen)
     b, by = bound_ms(8.0 * H * W, 7.0 * H * W)
+    # no single PyTorch call does a 5-point stencil with replicated edges
     out["stencil5"] = dict(
         shape=[H, W], ms=median_ms(lambda: stencil5(g, 0.1), 20),
         plain_ms=median_ms(lambda: stencil5_ref(g, 0.1), 5),
-        bound_ms=b, bound_by=by)
+        bound_ms=b, bound_by=by, library_ms=None)
     del g
     torch.cuda.empty_cache()
 
@@ -242,13 +273,19 @@ def phase_timing() -> dict:
     st = random_state(n, gen)
     gate = _random_su4(np.random.default_rng(1))
     b, by = bound_ms(16.0 * (1 << n), 32.0 * (1 << n))
+    # the library call: the plain version's one einsum over views of the
+    # state as (A, 2, B, 2, C) and of the gate as (2, 2, 2, 2), q1 = 5 < q2
+    psi = st.view(1 << (n - 18), 2, 1 << 11, 2, 1 << 5)
+    g4 = gate.to("cuda", torch.complex64).reshape(2, 2, 2, 2)
     out["qv_gate"] = dict(
         shape=[1 << n],
         ms=median_ms(lambda: apply_two_qubit_gate(st, gate, 5, 17, n), 10),
         plain_ms=median_ms(
             lambda: apply_two_qubit_gate_ref(st, gate, 5, 17, n), 3, warmup=1),
-        bound_ms=b, bound_by=by)
-    del st
+        bound_ms=b, bound_by=by,
+        library_ms=median_ms(
+            lambda: torch.einsum("jilk,akblc->aibjc", g4, psi), 3, warmup=1))
+    del st, psi
     torch.cuda.empty_cache()
     emit("timing", kernels=out)
     return out
@@ -283,7 +320,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "card": smi})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

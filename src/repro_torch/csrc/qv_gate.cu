@@ -64,12 +64,10 @@ qv_gate_kernel(float2* __restrict__ psi, int64_t n_quads, int lo, int hi,
 }  // namespace
 
 // Applies `gate` (host pointer to 16 complex64 values, row-major) to qubits
-// (q1, q2) of `state` (2^n_qubits complex64 on the device) on `stream`.
-// Returns cudaGetLastError() after the launch.
-extern "C" int qv_gate_c64(int device, void* state, int64_t n_qubits, int q1,
-                           int q2, const void* gate, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+// (q1, q2) of `state` (2^n_qubits complex64 on the device) on `stream`, on
+// the caller's current device. Returns cudaGetLastError() after the launch.
+extern "C" int qv_gate_c64(void* state, int64_t n_qubits, int q1, int q2,
+                           const void* gate, void* stream) {
   Gate g;
   const float2* src = (const float2*)gate;
   for (int i = 0; i < 16; ++i) g.m[i] = src[i];

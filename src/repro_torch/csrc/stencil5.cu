@@ -66,12 +66,10 @@ stencil5_kernel(const float* __restrict__ in, float* __restrict__ out,
 
 }  // namespace
 
-// Launches one sweep of `in` (H x W, row-major fp32) into `out` on `stream`.
-// Returns cudaGetLastError() after the launch.
-extern "C" int stencil5_f32(int device, const void* in, void* out, int64_t H,
-                            int64_t W, float coeff, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+// Launches one sweep of `in` (H x W, row-major fp32) into `out` on `stream`,
+// on the caller's current device. Returns cudaGetLastError() after the launch.
+extern "C" int stencil5_f32(const void* in, void* out, int64_t H, int64_t W,
+                            float coeff, void* stream) {
   const int64_t tiles_x = (W + TILE_X - 1) / TILE_X;
   const int64_t tiles = tiles_x * ((H + TILE_Y - 1) / TILE_Y);
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;

@@ -1,10 +1,10 @@
 """Device resolution and the build of the port's CUDA kernels.
 
 The kernels are CUDA C++ for ``sm_90a`` under ``src/repro_torch/csrc/``.
-:func:`library` compiles each source with ``nvcc`` (all at once), links them
-into ``build/torch_kernels/libkernels_<hash of sources>.so`` at the root of
-the checkout, and loads that with ``ctypes``. The build runs at first use and
-is reused while the sources are unchanged. A missing ``nvcc`` or a failed
+:func:`library` builds each source with its own ``nvcc`` (all at once) into
+``build/torch_kernels/lib<source>_<hash of source and flags>.so`` at the root
+of the checkout, and loads them with ``ctypes``. The build runs at first use
+and is reused while the sources are unchanged. A missing ``nvcc`` or a failed
 build raises; nothing falls back.
 """
 from __future__ import annotations
@@ -25,16 +25,16 @@ NEG_INF = -1e30
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
-# C entry points: (argtypes); each returns cudaGetLastError() as an int
+# C entry points of each source: name -> argtypes; each returns
+# cudaGetLastError() as an int
 SIGNATURES = {
-    "stencil5_f32": (_I32, _P, _P, _I64, _I64, _F32, _P),
-    "qv_gate_c64": (_I32, _P, _I64, _I32, _I32, _P, _P),
+    "stencil5": {"stencil5_f32": (_P, _P, _I64, _I64, _F32, _P)},
+    "qv_gate": {"qv_gate_c64": (_P, _I64, _I32, _I32, _P, _P)},
 }
 
 
@@ -50,9 +50,9 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclass(frozen=True)
 class KernelLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float  # 0.0 when an earlier build was loaded
+    fns: dict             # entry point name -> ctypes function
+    paths: tuple          # one shared library per source
+    build_seconds: float  # 0.0 when earlier builds were loaded
     ptxas_report: str     # nvcc -Xptxas -v output; empty when loaded
 
 
@@ -65,67 +65,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def _compile(so: Path) -> str:
-    """Compile every source in parallel, link them into ``so``; return the
-    compilers' register and shared-memory report."""
-    nvcc = _nvcc()
-    work = so.parent / f"tmp_{so.stem}_{os.getpid()}"
-    work.mkdir(parents=True, exist_ok=True)
-    objs = [work / f"{src.stem}.o" for src in _sources()]
-    procs = []
-    try:
-        for src, obj in zip(_sources(), objs):
-            procs.append((src, subprocess.Popen(
-                [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        outputs = [(src, p.communicate()[0], p.returncode) for src, p in procs]
-        for src, out, rc in outputs:
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
-        tmp_so = work / so.name
-        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp_so),
-                               *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        os.replace(tmp_so, so)
-    finally:
-        for _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        shutil.rmtree(work, ignore_errors=True)
-    return "".join(out for _, out, _ in outputs)
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 @functools.cache
 def library() -> KernelLibrary:
-    """Build (if needed) and load the kernels' shared library."""
+    """Build what is missing, one ``nvcc`` per source started together, and
+    load every kernel's shared library. A build is written under a temporary
+    name and renamed, so concurrent builds stay atomic."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libkernels_{_source_hash()}.so"
-    seconds, report = 0.0, ""
-    if not so.exists():
-        t0 = time.perf_counter()
-        report = _compile(so)
-        seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return KernelLibrary(lib, so, seconds, report)
+    targets = {stem: _target(CSRC / f"{stem}.cu") for stem in SIGNATURES}
+    todo = [stem for stem, so in targets.items() if not so.exists()]
+    t0 = time.perf_counter()
+    procs = {stem: subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, str(CSRC / f"{stem}.cu"), "-o",
+         f"{targets[stem]}.{os.getpid()}.tmp"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for stem in todo}
+    report = {stem: p.communicate()[0] for stem, p in procs.items()}
+    for stem, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {stem}.cu:\n{report[stem]}")
+        os.replace(f"{targets[stem]}.{os.getpid()}.tmp", targets[stem])
+    seconds = time.perf_counter() - t0 if todo else 0.0
+    fns = {}
+    for stem, entries in SIGNATURES.items():
+        lib = ctypes.CDLL(str(targets[stem]))
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return KernelLibrary(fns, tuple(targets.values()), seconds,
+                         "".join(report.values()))
 
 
 def check_launch(name: str, err: int) -> None:

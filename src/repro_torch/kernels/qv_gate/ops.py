@@ -34,9 +34,10 @@ def apply_two_qubit_gate(state: torch.Tensor, gate: torch.Tensor, q1: int,
             apply_two_qubit_gate_ref(state, gate, q1, q2, n_qubits))
     require_cuda_tensor(state, "state", torch.complex64, ndim=1)
     g = gate.detach().to("cpu", torch.complex64).contiguous()
-    err = library().lib.qv_gate_c64(
-        state.device.index, state.data_ptr(), n_qubits, q1, q2, g.data_ptr(),
-        stream_of(state))
+    with torch.cuda.device(state.device):
+        err = library().fns["qv_gate_c64"](
+            state.data_ptr(), n_qubits, q1, q2, g.data_ptr(),
+            stream_of(state))
     check_launch("qv_gate", err)
     apply_two_qubit_gate.launches += 1
     return state

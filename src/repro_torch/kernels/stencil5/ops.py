@@ -25,9 +25,10 @@ def stencil5(grid: torch.Tensor, coeff: float) -> torch.Tensor:
     out = torch.empty_like(grid)
     H, W = grid.shape
     if H and W:
-        err = library().lib.stencil5_f32(
-            grid.device.index, grid.data_ptr(), out.data_ptr(), H, W,
-            float(coeff), stream_of(grid))
+        with torch.cuda.device(grid.device):
+            err = library().fns["stencil5_f32"](
+                grid.data_ptr(), out.data_ptr(), H, W, float(coeff),
+                stream_of(grid))
         check_launch("stencil5", err)
         stencil5.launches += 1
     return out
