@@ -5,10 +5,13 @@
 
 Needs one CUDA card and ``nvcc``. It builds the CUDA kernels from
 ``src/repro_torch/csrc``, holds each against its plain PyTorch version on the
-card, drives hotspot, srad and qiskit at full size through the kernels
-(counting each kernel's launches), holds the apps' card results against the
-CPU on small shared inputs and their charges against the parity fixture,
-times each kernel at its main-path shape, and prints:
+card, drives the port's two main paths through the kernels, counting each
+kernel's launches: hotspot, srad and qiskit at full size, and paged-KV
+serving of full-width yi-6b (8 requests through ``ServeEngine``). It holds
+the apps' card results against the CPU on small shared inputs and their
+charges against the parity fixture, the paged engine's tokens against the
+dense decode path at full width and against the CPU on reduced yi-6b, times
+each kernel at its main-path shape, and prints:
 
 * one JSON line per phase;
 * ``{"kernels": [...]}``: each kernel's launches on the main path, largest
@@ -57,6 +60,23 @@ QV_MAIN_RTOL = 1e-5
 QISKIT_NORM_TOL = 1e-3
 SMALL_RTOL = 1e-5   # card vs CPU checksums on shared small inputs
 
+# paged attention: the three shapes of tests/test_kernels.py as
+# (B, H, Hkv, D, P, PS, NP), then yi-6b's decode shape over the serve
+# phase's 1025-page pool; fp32 and bf16 tolerances as that test's
+PAGED_SHAPES = [(2, 8, 2, 64, 16, 16, 4), (3, 4, 4, 128, 32, 8, 6),
+                (1, 16, 1, 64, 8, 32, 3)]
+PAGED_MAIN = (8, 32, 4, 128, 1025, 16, 128)
+PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the serving main path: full-width yi-6b, fp32, random weights from a seed
+SERVE = dict(arch="yi-6b", max_seqs=8, max_len=2048, page_size=16,
+             prefill_chunk=128, requests=8, prompt_lens=(200, 1000),
+             new_tokens=32)
+DENSE_CHECK = dict(prompt_len=64, new_tokens=8, max_len=128)
+# a token of the paged engine may differ from the dense path's only where
+# the dense path's top-2 logit margin is below this share of max |logit|
+MARGIN_RTOL = 1e-4
+L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
+
 PARITY_FIXTURE = ROOT / "tests" / "fixtures" / "parity.json"
 
 
@@ -69,12 +89,15 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs, from CUDA events."""
+def median_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
+    """Median device time of ``fn()`` over ``reps`` runs, from CUDA events;
+    ``before()`` runs ahead of each timed run, outside the events."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -107,8 +130,39 @@ def phase_build():
          libraries=[p.name for p in lib.paths], ptxas=report)
 
 
+def paged_inputs(shape, dtype, gen, engine_like: bool):
+    """Random q and pools of ``shape`` on the card. ``engine_like``: lengths
+    drawn from 1 .. NP * PS with a partial last page, page ids scattered
+    over the non-null pages, zeros past each sequence's pages, as the
+    engine's table holds them; else tests/test_kernels.py's lengths and
+    table."""
+    B, H, Hkv, D, P, PS, NP = shape
+    q = torch.randn(B, H, D, device="cuda", generator=gen).to(dtype)
+    kp = torch.randn(P, PS, Hkv, D, device="cuda", generator=gen).to(dtype)
+    vp = torch.randn(P, PS, Hkv, D, device="cuda", generator=gen).to(dtype)
+    if engine_like:
+        pt = (torch.randperm(P - 1, device="cuda", generator=gen)[:B * NP]
+              + 1).reshape(B, NP)
+        ln = torch.randint(1, NP * PS + 1, (B,), device="cuda", generator=gen)
+        if not bool((ln % PS).any()):
+            ln[0] -= 1
+        live = -(-ln // PS)
+        pt = torch.where(torch.arange(NP, device="cuda")[None] < live[:, None],
+                         pt, 0)
+    else:
+        pt = torch.randperm(P, device="cuda", generator=gen)[:B * NP]
+        pt = pt.reshape(B, NP)
+        ln = torch.tensor([NP * PS - 3] + [max(1, (NP - 1) * PS)] * (B - 1),
+                          device="cuda")
+    return q, kp, vp, pt.int(), ln.int()
+
+
 def phase_kernels_vs_plain() -> dict:
     from repro_torch.apps.qsim import _random_su4
+    from repro_torch.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_ref,
+    )
     from repro_torch.kernels.qv_gate import (
         apply_two_qubit_gate,
         apply_two_qubit_gate_ref,
@@ -116,7 +170,7 @@ def phase_kernels_vs_plain() -> dict:
     from repro_torch.kernels.stencil5 import stencil5, stencil5_ref
 
     gen = torch.Generator("cuda").manual_seed(0)
-    errs = {"stencil5": 0.0, "qv_gate": 0.0}
+    errs = {"stencil5": 0.0, "qv_gate": 0.0, "paged_attention": 0.0}
     rows = []
     for shape in STENCIL_SHAPES:
         g = torch.randn(shape, device="cuda", generator=gen)
@@ -166,18 +220,42 @@ def phase_kernels_vs_plain() -> dict:
                          norm_tol=QV_TOL))
     del st
     torch.cuda.empty_cache()
+
+    # the test's three shapes, then yi-6b's decode shape, in both dtypes
+    for shape in PAGED_SHAPES + [PAGED_MAIN]:
+        main = shape == PAGED_MAIN
+        for dtype, tol in PAGED_TOL.items():
+            args = paged_inputs(shape, dtype, gen, engine_like=main)
+            out = paged_attention(*args)
+            torch.cuda.synchronize()
+            err = float((out.float() - paged_attention_ref(*args).float())
+                        .abs().max())
+            check(err <= tol, f"paged_attention {shape} {dtype} err {err}")
+            if main and dtype == torch.float32:  # the serve path's dtype
+                errs["paged_attention"] = err
+            rows.append(dict(kernel="paged_attention", shape=list(shape),
+                             dtype=str(dtype), lengths=args[4].tolist(),
+                             max_abs_err=err, tol=tol))
+            del args, out
     emit("kernel_vs_plain", checks=rows)
     return errs
+
+
+def kernel_counters() -> dict:
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.qv_gate import apply_two_qubit_gate
+    from repro_torch.kernels.stencil5 import stencil5
+
+    return {"stencil5": stencil5, "qv_gate": apply_two_qubit_gate,
+            "paged_attention": paged_attention}
 
 
 def phase_apps() -> dict:
     """The main path: each app at full size on the card, with every launch
     counter set to 0 just before it and read just after."""
     from repro_torch.apps import run_hotspot, run_qsim, run_srad
-    from repro_torch.kernels.qv_gate import apply_two_qubit_gate
-    from repro_torch.kernels.stencil5 import stencil5
 
-    counters = {"stencil5": stencil5, "qv_gate": apply_two_qubit_gate}
+    counters = kernel_counters()
     total = dict.fromkeys(counters, 0)
     rows = []
     runs = [("hotspot", run_hotspot, HOTSPOT, "stencil5"),
@@ -247,7 +325,181 @@ def phase_parity() -> None:
     emit("parity", configs=keys, bit_identical=True)
 
 
-def phase_timing() -> dict:
+def phase_serve():
+    """The serving main path: full-width yi-6b with random fp32 weights made
+    on the card, 8 requests through ServeEngine over a KV pool under the
+    unified-memory runtime, every launch counter set to 0 just before the
+    run and read just after. Returns the launches, the model (for the dense
+    check) and the last decode batch's paged_attention inputs (for timing)."""
+    import dataclasses
+
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core import UnifiedMemory
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    um = UnifiedMemory()  # the charge model's default hardware, GRACE_HOPPER
+    eng = ServeEngine(cfg, model, max_seqs=SERVE["max_seqs"],
+                      max_len=SERVE["max_len"], page_size=SERVE["page_size"],
+                      prefill_chunk=SERVE["prefill_chunk"], um=um,
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    lo, hi = SERVE["prompt_lens"]
+    prompts = [rng.integers(2, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+               for _ in range(SERVE["requests"])]
+    rids = [eng.add_request(p, SERVE["new_tokens"]) for p in prompts]
+
+    # time prefill chunks and decode batches apart (each ends synchronized),
+    # time each paged_attention launch on the card with CUDA events, and
+    # keep the last call's inputs
+    spent = {"prefill": 0.0, "decode": 0.0}
+    last, events = {}, []
+
+    def timed(fn, key):
+        def run(*a):
+            t = time.perf_counter()
+            fn(*a)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+        return run
+
+    def recording(*args):
+        last["args"] = args
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*args)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    eng._prefill_chunk_run = timed(eng._prefill_chunk_run, "prefill")
+    eng._decode_batch = timed(eng._decode_batch, "decode")
+    real = engine_mod.paged_attention
+    engine_mod.paged_attention = recording
+    counters = kernel_counters()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        engine_mod.paged_attention = real
+    st = eng.stats
+    check(st.decode_batches > 0 and launches["paged_attention"]
+          == st.decode_batches * cfg.num_layers,
+          f"paged_attention launched {launches['paged_attention']} times "
+          f"for {st.decode_batches} decode batches x {cfg.num_layers} layers")
+    for rid in rids:
+        check(eng.requests[rid].done
+              and len(out[rid]) == SERVE["new_tokens"],
+              f"request {rid} ended with {len(out[rid])} tokens")
+    prefill_tokens = int(sum(len(p) for p in prompts))
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    rep = um.report()
+    emit("serve", arch=cfg.name, params=cfg.param_count(), dtype="float32",
+         config={k: v for k, v in SERVE.items() if k != "arch"},
+         prompt_lens=[len(p) for p in prompts], init_s=init_s, wall_s=wall,
+         prefill_tokens=prefill_tokens, prefill_s=spent["prefill"],
+         prefill_tok_per_s=prefill_tokens / spent["prefill"],
+         decode_tokens=st.decode_tokens, decode_s=spent["decode"],
+         decode_tok_per_s=st.decode_tokens / spent["decode"],
+         # each sequence of a decode batch gets one token from it
+         per_token_latency_ms=1e3 * spent["decode"] / st.decode_batches,
+         paged_attention_ms=kernel_ms,
+         paged_attention_share_of_decode=kernel_ms / (1e3 * spent["decode"]),
+         peak_device_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, stats=dataclasses.asdict(st),
+         umem_modeled=dict(hardware="GRACE_HOPPER", clock_s=um.clock,
+                           traffic_total=rep["traffic_total"],
+                           remote_access_share=rep["remote_access_share"]),
+         tokens={rid: out[rid] for rid in rids})
+    del eng, um
+    return launches, model, last["args"]
+
+
+def phase_dense_check(model) -> None:
+    """One request at full width through the paged engine and through the
+    dense decode_step path: the greedy tokens must agree, or differ first
+    where the dense path's top-2 logit margin is within rounding."""
+    from repro_torch.models import init_cache
+    from repro_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    n, new, max_len = (DENSE_CHECK[k] for k in
+                       ("prompt_len", "new_tokens", "max_len"))
+    prompt = np.random.default_rng(2).integers(2, cfg.vocab_size, n)
+    eng = ServeEngine(cfg, model, max_seqs=1, max_len=max_len, page_size=16,
+                      device="cuda")
+    rid = eng.add_request(prompt, new)
+    paged = eng.run_to_completion()[rid]
+    del eng
+    cache = init_cache(cfg, 1, max_len, dtype=torch.float32, device="cuda")
+    dense, margins = [], []
+    for i in range(n + new - 1):
+        tok = int(prompt[i]) if i < n else dense[-1]
+        lg, cache = model.decode_step(
+            torch.tensor([[tok]], dtype=torch.int32, device="cuda"),
+            torch.tensor([i], dtype=torch.int32, device="cuda"), cache)
+        if i >= n - 1:
+            top = torch.topk(lg[0, 0], 2).values
+            dense.append(int(torch.argmax(lg[0, 0])))
+            margins.append((float(top[0] - top[1]),
+                            float(lg[0, 0].abs().max())))
+    del cache
+    first = next((i for i, (a, b) in enumerate(zip(paged, dense)) if a != b),
+                 None)
+    row = dict(paged=paged, dense=dense, first_difference=first,
+               top2_margins=[m for m, _ in margins])
+    if first is not None:
+        margin, scale = margins[first]
+        row.update(margin=margin, margin_tol=MARGIN_RTOL * scale)
+    emit("dense_check", **row)
+    if first is not None:
+        check(row["margin"] < row["margin_tol"],
+              f"paged token {paged[first]} != dense {dense[first]} at "
+              f"{first} with top-2 margin {row['margin']}")
+
+
+def phase_serve_card_vs_cpu() -> None:
+    """Reduced yi-6b with the same weights (a numpy tree from a seed) on the
+    card and on the CPU: the same schedule gives the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import load_jax_params, numpy_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(SERVE["arch"]).reduced()
+    tree = numpy_params(cfg, seed=3)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, cfg.vocab_size, int(rng.integers(8, 60)))
+               for _ in range(6)]
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(cfg, load_jax_params(cfg, tree, dev), max_seqs=4,
+                          max_len=128, page_size=16, prefill_chunk=32,
+                          device=dev)
+        rids = [eng.add_request(p, 12) for p in prompts]
+        out = eng.run_to_completion()
+        toks[dev] = [out[r] for r in rids]
+    check(toks["cuda"] == toks["cpu"],
+          f"card tokens {toks['cuda']} != cpu tokens {toks['cpu']}")
+    emit("serve_card_vs_cpu", arch=cfg.name, requests=len(prompts),
+         tokens_equal=True, tokens=toks["cuda"])
+
+
+def phase_timing(paged_args) -> dict:
     """Each kernel and its plain version at the main path's shape."""
     from repro_torch.apps.qsim import _random_su4
     from repro_torch.kernels.qv_gate import (
@@ -287,6 +539,41 @@ def phase_timing() -> dict:
             lambda: torch.einsum("jilk,akblc->aibjc", g4, psi), 3, warmup=1))
     del st, psi
     torch.cuda.empty_cache()
+
+    # paged attention at the serve phase's last decode batch (its last
+    # layer), with L2 flushed before each run, as the engine's other
+    # layers leave it; also at yi-6b's decode shape with 8 sequences
+    from repro_torch.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_ref,
+    )
+
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    def paged_timing(args):
+        q, kp, vp, pt, ln = args
+        B, H, D = q.shape
+        Hkv, size = kp.shape[2], q.element_size()
+        live = int(ln.sum())
+        b, by = bound_ms(live * Hkv * D * 2 * size + 2 * B * H * D * size
+                         + 4 * (pt.numel() + B), 4.0 * live * H * D)
+        # no one PyTorch call attends over a paged pool: library_ms is null
+        return dict(shape=[B, H, Hkv, D, kp.shape[0], kp.shape[1],
+                           pt.shape[1]],
+                    lengths=ln.tolist(),
+                    ms=median_ms(lambda: paged_attention(*args), 50,
+                                 before=flush),
+                    plain_ms=median_ms(lambda: paged_attention_ref(*args), 10,
+                                       before=flush),
+                    bound_ms=b, bound_by=by, library_ms=None)
+
+    out["paged_attention"] = paged_timing(paged_args)
+    out["paged_attention_decode_shape"] = paged_timing(paged_inputs(
+        PAGED_MAIN, torch.float32, gen, engine_like=True))
+    del scratch
     emit("timing", kernels=out)
     return out
 
@@ -300,7 +587,13 @@ def main() -> int:
     launches = phase_apps()
     phase_small_vs_cpu()
     phase_parity()
-    times = phase_timing()
+    serve_launches, model, paged_args = phase_serve()
+    launches["paged_attention"] = serve_launches["paged_attention"]
+    phase_dense_check(model)
+    del model
+    phase_serve_card_vs_cpu()
+    times = phase_timing(paged_args)
+    del paged_args
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -311,6 +604,9 @@ def main() -> int:
                      "src/repro/kernels/stencil5/stencil5.py:33"),
         "qv_gate": ("src/repro_torch/csrc/qv_gate.cu",
                     "src/repro/kernels/qv_gate/qv_gate.py:35"),
+        "paged_attention": (
+            "src/repro_torch/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention/paged_attention.py:68"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,0 +1,561 @@
+"""Oversubscription-aware continuous-batching serve engine (the port of
+``repro.serve.engine``).
+
+Requests move through the scheduler states
+
+    pending -> prefill -> decoding -> (preempted <-> decoding)* -> done
+
+driven by one ``step()`` per engine iteration:
+
+  1. **Admission control**: preempted sequences resume first (oldest rid
+     first), then pending requests are admitted FIFO. Admission needs free
+     KV pool pages for the whole prompt plus a watermark and, when a
+     :class:`UnifiedMemory` governs the pool, ``um.device_free()`` covering
+     ``admit_device_fraction`` of the projected KV growth (skipped when
+     nothing runs, so the engine always makes progress).
+  2. **Chunked prefill**: at most ``prefill_chunk`` prompt tokens per step
+     (shared FIFO budget). Each chunk attends over the KV already in the
+     pool (gathered per layer), so chunked and unchunked prefill agree.
+  3. **Async prefetch**: resumed sequences' pool extents are promoted ahead
+     of their decode turn via ``um.prefetch_async``.
+  4. **Batched decode**: one step over every decoding sequence, whose
+     attention is the hand-written paged-attention kernel
+     (``repro_torch.kernels.paged_attention``) over the pool. If the pool
+     cannot back the batch's new-token pages, the youngest sequences are
+     preempted: their KV is demoted host-side (``um.demote`` +
+     ``PagedKVCache.swap_out``) and written back on resume.
+
+The engine runs on one device: the CUDA card unless the caller passes
+``device="cpu"``, where the kernel's plain version runs. Attention archs
+only. The scheduler state (page table, lengths, free pages) is numpy, so the
+charges of the unified-memory runtime match the JAX engine's bit for bit.
+
+**Timing.** :meth:`ServeEngine.now` is the modeled clock (``um.clock`` under
+a UnifiedMemory, the step index otherwise, plus idle time skipped by
+:meth:`advance_to`). ``arrival_time`` is recorded at enqueue, so TTFT
+includes the queueing delay before admission.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import HostSpillError, UnifiedMemory
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models.attention import _causal_bias, _sdpa
+from repro_torch.models.layers import RunPolicy
+from repro_torch.serve.paged import PagedKVCache
+
+
+class SeqState(Enum):
+    PENDING = "pending"      # not yet admitted
+    PREFILL = "prefill"      # admitted, prompt partially prefilled
+    DECODING = "decoding"    # generating tokens
+    PREEMPTED = "preempted"  # KV swapped host-side, waiting to resume
+    DONE = "done"
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    generated: List[int] = field(default_factory=list)
+    sid: int = -1
+    state: SeqState = SeqState.PENDING
+    prefill_pos: int = 0  # prompt tokens whose KV is in the pool
+    saved: Optional[dict] = None  # host-side KV while preempted
+    preemptions: int = 0
+    recoveries: int = 0  # fault replays (KV lost, recomputed from prompt)
+    tenant: str = ""
+    # modeled-clock timestamps (engine.now()); TTFT anchors at arrival_time
+    arrival_time: float = 0.0
+    admit_time: Optional[float] = None
+    first_token_time: Optional[float] = None
+    finish_time: Optional[float] = None
+
+    @property
+    def done(self) -> bool:
+        return self.state is SeqState.DONE
+
+
+@dataclass
+class EngineStats:
+    admitted: int = 0
+    preempted: int = 0
+    resumed: int = 0
+    prefill_chunks: int = 0
+    decode_batches: int = 0
+    decode_tokens: int = 0
+    # fault-recovery accounting (zero in a fault-free run)
+    node_losses: int = 0
+    recovered_requests: int = 0
+    replayed_tokens: int = 0  # token work thrown away and recomputed
+    spill_failures: int = 0
+    admission_retries: int = 0  # admissions deferred by the post-fault hold
+    lane_degraded_steps: int = 0
+
+
+class ServeEngine:
+    def __init__(self, cfg, params, *, max_seqs: int = 8, max_len: int = 512,
+                 page_size: int = 64, num_pages: Optional[int] = None,
+                 policy: Optional[RunPolicy] = None,
+                 um: Optional[UnifiedMemory] = None, greedy: bool = True,
+                 prefill_chunk: int = 128, watermark_pages: int = 0,
+                 admit_device_fraction: float = 0.5,
+                 counter_threshold: int = 16, mem_policy=None,
+                 tp_plan=None, fault_plan=None,
+                 admit_backoff_steps: int = 2, device=None):
+        """``params`` is the :class:`~repro_torch.models.TransformerLM`;
+        it must live on ``device`` (the CUDA card unless the caller passes
+        ``device="cpu"``)."""
+        dev = resolve_device(device)
+        if cfg.mixer != "attention" or set(cfg.layer_kinds()) != {"attention"}:
+            raise ValueError("paged serving with chunked prefill needs "
+                             "homogeneous global-attention archs")
+        if params.device.type != dev.type or dev.index not in (
+                None, params.device.index):
+            raise ValueError(f"params live on {params.device}, the engine "
+                             f"runs on {dev}")
+        self.device = params.device
+        self.cfg = cfg
+        self.params = params
+        self.policy = policy or RunPolicy()
+        self.layout = params.layout
+        # tp_plan (a ClusterTPPlan) maps sequences to serving superchips and
+        # charges per-token tensor-parallel collective traffic; it only ADDS
+        # modeled charges and node pins, so tokens stay those of one node
+        self.tp_plan = tp_plan
+        seq_node = (tp_plan.node_of_seq if tp_plan is not None
+                    and um is not None else None)
+        self.cache = PagedKVCache(cfg, self.layout, max_seqs=max_seqs,
+                                  max_len=max_len, page_size=page_size,
+                                  num_pages=num_pages,
+                                  dtype=params.final_norm.scale.dtype,
+                                  device=params.device, um=um,
+                                  counter_threshold=counter_threshold,
+                                  mem_policy=mem_policy, seq_node=seq_node)
+        self.um = um
+        self.requests: Dict[int, Request] = {}
+        self._next_rid = 0
+        self.greedy = greedy
+        self.max_len = max_len
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.watermark_pages = watermark_pages
+        self.admit_device_fraction = admit_device_fraction
+        self.stats = EngineStats()
+        self._needs_prefetch: List[Request] = []
+        self._steps = 0
+        self._idle_skipped = 0.0
+        # fault plan (a FaultPlan): a frozen, sorted schedule this engine
+        # consumes through its own cursor; None costs one identity check
+        # per step, so fault-free runs are unchanged
+        if fault_plan is not None and not fault_plan:
+            fault_plan = None  # empty plan: take the zero-cost path
+        if fault_plan is not None and um is None:
+            raise ValueError(
+                "fault_plan needs a UnifiedMemory-governed engine: faults "
+                "are delivered through um.fail_node / set_lane_degradation "
+                "/ set_spill_failure")
+        self.fault_plan = fault_plan
+        self._fault_idx = 0
+        self._degrade_until = -1  # step the active lane window expires at
+        self._spill_until = -1    # step the active spill window expires at
+        self.admit_backoff_steps = max(1, admit_backoff_steps)
+        self._backoff = self.admit_backoff_steps
+        self._hold_admit = 0  # steps fresh admission stays held post-fault
+        self.draining = False
+
+    # ----------------------------------------------------------------- clock
+    def now(self) -> float:
+        """Modeled time: the UnifiedMemory clock when one governs the pool,
+        the step index otherwise, plus idle time skipped via advance_to."""
+        base = self.um.clock if self.um is not None else float(self._steps)
+        return base + self._idle_skipped
+
+    def advance_to(self, t: float) -> float:
+        """Fast-forward the clock to ``t`` (never backwards). Returns now()."""
+        cur = self.now()
+        if t > cur:
+            self._idle_skipped += t - cur
+        return self.now()
+
+    # ---------------------------------------------------------------- admin
+    def add_request(self, prompt: np.ndarray, max_new_tokens: int = 16, *,
+                    arrival_time: Optional[float] = None,
+                    tenant: str = "") -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self.requests[rid] = Request(
+            rid, np.asarray(prompt), max_new_tokens, tenant=tenant,
+            arrival_time=self.now() if arrival_time is None else arrival_time)
+        return rid
+
+    def _in_state(self, state: SeqState) -> List[Request]:
+        return [r for r in self.requests.values() if r.state is state]
+
+    def _projected_kv_bytes(self, req: Request) -> int:
+        """KV bytes this request still has to materialize: its projected
+        footprint (prompt + max_new_tokens, capped at max_len) minus the
+        pool pages it already holds."""
+        total = min(self.max_len, len(req.prompt) + req.max_new_tokens)
+        have = (int(np.count_nonzero(self.cache.page_table[req.sid]))
+                if req.sid >= 0 else 0)
+        return max(0, self.cache.pages_for(total) - have) * self.cache.page_bytes
+
+    # ----------------------------------------------------------- admission
+    def _admission_ok(self, req: Request, running: List[Request]) -> bool:
+        need = self.cache.pages_for(len(req.prompt)) + 1  # prompt + 1st decode
+        if self.cache.free_pages() < need + self.watermark_pages:
+            return False
+        if self.um is not None and running and self.admit_device_fraction > 0:
+            demand = self._projected_kv_bytes(req) + sum(
+                self._projected_kv_bytes(r) for r in running)
+            if self.um.device_free() < self.admit_device_fraction * demand:
+                return False
+        return True
+
+    def _admit(self) -> int:
+        progressed = 0
+        running = self._in_state(SeqState.PREFILL) + \
+            self._in_state(SeqState.DECODING)
+        # preempted sequences resume first, oldest rid first
+        for req in sorted(self._in_state(SeqState.PREEMPTED), key=lambda r: r.rid):
+            if self.cache.free_slots() == 0:
+                break
+            need = self.cache.pages_for(int(req.saved["len"]) + 1)
+            if self.cache.free_pages() < need + self.watermark_pages:
+                break
+            self._resume(req)
+            running.append(req)
+            progressed += 1
+        if self._in_state(SeqState.PREEMPTED):
+            return progressed  # don't admit fresh work while old work waits
+        for req in sorted(self._in_state(SeqState.PENDING), key=lambda r: r.rid):
+            if self.cache.free_slots() == 0:
+                break
+            # drain mode and the post-fault hold apply to fresh work only
+            # (a replayed request already has its admit_time)
+            fresh = req.admit_time is None
+            if fresh and self.draining:
+                continue
+            if fresh and self._hold_admit > 0:
+                self.stats.admission_retries += 1
+                continue
+            if not self._admission_ok(req, running):
+                break
+            req.sid = self.cache.new_seq()
+            req.state = SeqState.PREFILL
+            if req.admit_time is None:
+                req.admit_time = self.now()
+            self.stats.admitted += 1
+            running.append(req)
+            progressed += 1
+        return progressed
+
+    # ---------------------------------------------------------------- faults
+    def start_drain(self) -> None:
+        """In-flight requests run to completion; no fresh request is
+        admitted (fault-replayed ones still re-enter)."""
+        self.draining = True
+
+    def _apply_faults(self) -> None:
+        """Deliver the fault plan's due events for this step and expire any
+        active lane-degradation / spill-failure window."""
+        ev = self.fault_plan.events
+        while self._fault_idx < len(ev) and ev[self._fault_idx].step <= self._steps:
+            e = ev[self._fault_idx]
+            self._fault_idx += 1
+            if e.kind == "node_loss":
+                self._on_node_loss(e.node)
+            elif e.kind == "lane_degrade":
+                self.um.set_lane_degradation(
+                    (e.nvlink_factor, e.fabric_factor))
+                self._degrade_until = e.step + e.duration
+            elif e.kind == "spill_fail":
+                self.um.set_spill_failure(True)
+                self._spill_until = e.step + e.duration
+            else:
+                raise ValueError(f"unknown fault kind {e.kind!r}")
+        if self._degrade_until >= 0:
+            if self._steps >= self._degrade_until:
+                self.um.set_lane_degradation(None)
+                self._degrade_until = -1
+            else:
+                self.stats.lane_degraded_steps += 1
+        if self._spill_until >= 0 and self._steps >= self._spill_until:
+            self.um.set_spill_failure(False)
+            self._spill_until = -1
+
+    def _on_node_loss(self, node: int) -> None:
+        """A serving superchip died: poison its resident pages, shrink the
+        TP plan to the survivors and replay every sequence whose KV pages
+        are gone; fresh admission backs off (doubling hold)."""
+        self.stats.node_losses += 1
+        lost = self.um.fail_node(node)
+        if self.tp_plan is not None:
+            self.tp_plan = self.tp_plan.without_node(node)
+            self.cache.seq_node = self.tp_plan.node_of_seq
+        runs = lost.get(self.cache.alloc.name, [])
+        for sid in self.cache.seqs_touching_pages(runs):
+            req = next((r for r in self.requests.values()
+                        if r.sid == sid and not r.done), None)
+            if req is not None:
+                self._replay(req)
+        self._hold_admit = max(self._hold_admit, self._backoff)
+        self._backoff = min(self._backoff * 2, 64)
+
+    def _replay(self, req: Request) -> None:
+        """Drop a sequence whose KV is lost (or unsavable) and requeue it
+        for recompute from its prompt (greedy decode gives the same
+        tokens)."""
+        self.stats.recovered_requests += 1
+        self.stats.replayed_tokens += len(req.generated) + req.prefill_pos
+        if req.sid >= 0:
+            self.cache.release(req.sid)
+            req.sid = -1
+        req.saved = None
+        req.generated = []
+        req.prefill_pos = 0
+        req.state = SeqState.PENDING
+        req.recoveries += 1
+
+    # ---------------------------------------------------------- preemption
+    def _node_ctx(self, sid: int):
+        """Pin umem ops to the sequence's serving superchip under a TP plan."""
+        if self.tp_plan is not None and self.um is not None:
+            return self.um.on_node(self.tp_plan.node_of_seq(sid))
+        return contextlib.nullcontext()
+
+    def _preempt(self, req: Request) -> None:
+        if self.um is not None:
+            try:
+                with self._node_ctx(req.sid):
+                    for band in self.cache.seq_views(req.sid):
+                        self.um.demote(band)
+            except HostSpillError:
+                # the KV cannot be saved host-side: drop it and recompute
+                # from the prompt
+                self.stats.spill_failures += 1
+                self._replay(req)
+                return
+        req.saved = self.cache.swap_out(req.sid)
+        req.sid = -1
+        req.state = SeqState.PREEMPTED
+        req.preemptions += 1
+        self.stats.preempted += 1
+
+    def _resume(self, req: Request) -> None:
+        req.sid = self.cache.swap_in(req.saved)
+        req.saved = None
+        # a sequence preempted mid-prefill picks its prompt back up
+        req.state = (SeqState.DECODING if req.prefill_pos == len(req.prompt)
+                     else SeqState.PREFILL)
+        self.stats.resumed += 1
+        if self.um is not None:
+            self._needs_prefetch.append(req)
+
+    def _prefetch_resumed(self) -> None:
+        """Promote resumed sequences' extents ahead of their decode turn."""
+        if self.um is None or not self._needs_prefetch:
+            self._needs_prefetch = []
+            return
+        todo, self._needs_prefetch = self._needs_prefetch, []
+        for req in todo:
+            if req.sid < 0:
+                continue
+            bands = self.cache.seq_views(req.sid)
+            if bands:
+                with self._node_ctx(req.sid):
+                    self.um.prefetch_async(bands)
+
+    # -------------------------------------------------------------- prefill
+    def _prefill_step(self) -> int:
+        budget = self.prefill_chunk
+        chunks = 0
+        for req in sorted(self._in_state(SeqState.PREFILL), key=lambda r: r.rid):
+            if budget == 0:
+                break
+            want = min(budget, len(req.prompt) - req.prefill_pos)
+            # clamp the chunk to the pages the pool can back now, keeping
+            # one page in reserve per decoding sequence
+            reserve = len(self._in_state(SeqState.DECODING))
+            afford = (self.cache.allocated_until(req.sid)
+                      + max(0, self.cache.free_pages() - reserve)
+                      * self.cache.page_size
+                      - req.prefill_pos)
+            chunk = min(want, afford)
+            if chunk <= 0:
+                continue
+            self._prefill_chunk_run(req, chunk)
+            budget -= chunk
+            chunks += 1
+        return chunks
+
+    def _prefill_chunk_run(self, req: Request, chunk: int) -> None:
+        model, pol, dev = self.params, self.policy, self.device
+        s = req.prefill_pos
+        e = s + chunk
+        self.cache.alloc_range(req.sid, s, e)
+        toks = torch.as_tensor(req.prompt[s:e], device=dev)[None, :]
+        positions = torch.arange(s, e, dtype=torch.int32, device=dev)
+        bias = _causal_bias(positions,
+                            torch.arange(e, dtype=torch.int32, device=dev), 0)
+        x = model.embed_in(toks, positions)
+        for i, blk in enumerate(model.layers):
+            q, k_new, v_new = blk.mixer.project_qkv(blk.norm1(x), positions)
+            self.cache.write_at(req.sid, i, k_new[0], v_new[0], s)
+            k_full, v_full = self.cache.gather_kv(req.sid, i, e)
+            o = _sdpa(q, k_full[None], v_full[None], bias)
+            x = x + blk.mixer.out_proj(o, pol)
+            x = x + blk.ffn(blk.norm2(x), pol)
+        req.prefill_pos = e
+        self.cache.commit_prefill(req.sid, e)
+        if self.tp_plan is not None:
+            self.tp_plan.on_prefill(self, chunk)
+        self.stats.prefill_chunks += 1
+        if e == len(req.prompt):
+            logits = model.logits_out(model.final_norm(x[:, -1:]))
+            req.generated.append(int(torch.argmax(logits[0, -1])))
+            if req.first_token_time is None:
+                req.first_token_time = self.now()
+            req.state = SeqState.DECODING
+            if (len(req.generated) >= req.max_new_tokens
+                    or len(req.prompt) + len(req.generated) >= self.max_len - 1):
+                self._finish(req)
+
+    # --------------------------------------------------------------- decode
+    def _ensure_decode_pages(self, reqs: List[Request]) -> List[Request]:
+        """Back every batch member's new-token page, preempting the youngest
+        page-holding sequences when the pool runs dry. Only the oldest
+        page-holder is shielded, so it always makes progress."""
+        reqs = sorted(reqs, key=lambda r: r.rid)
+        while True:
+            need = sum(1 for r in reqs
+                       if self.cache.missing_pages(
+                           r.sid, int(self.cache.lengths[r.sid]) + 1))
+            if need <= self.cache.free_pages():
+                break
+            holders = sorted(
+                (r for r in self.requests.values() if r.sid >= 0
+                 and r.state in (SeqState.DECODING, SeqState.PREFILL)),
+                key=lambda r: r.rid)
+            if len(holders) <= 1:
+                raise RuntimeError(
+                    "KV page pool too small for a single sequence: "
+                    f"num_pages={self.cache.num_pages}, "
+                    f"seq needs page {int(self.cache.lengths[reqs[0].sid]) + 1}")
+            victim = holders[-1]  # youngest first: the oldest always runs
+            self._preempt(victim)
+            if victim in reqs:
+                reqs.remove(victim)
+            if not reqs:
+                return reqs  # whole batch preempted; the oldest is prefilling
+        for r in reqs:
+            self.cache.alloc_range(r.sid, 0, int(self.cache.lengths[r.sid]) + 1)
+        return reqs
+
+    def _decode_batch(self, reqs: List[Request]) -> None:
+        model, pol, dev = self.params, self.policy, self.device
+        cfg, lay = self.cfg, self.layout
+        B = len(reqs)
+        sids = [r.sid for r in reqs]
+        pos = [int(self.cache.lengths[r.sid]) for r in reqs]
+        tokens = torch.tensor([[r.generated[-1]] for r in reqs],
+                              dtype=torch.int32, device=dev)
+        posd = torch.tensor(pos, dtype=torch.int32, device=dev)[:, None]
+        pt, ln = self.cache.batch_view(sids)
+        ln = ln + 1  # the new token attends to itself
+        widx = self.cache.token_index(sids, pos)
+
+        x = model.embed_in(tokens, posd)
+        for i, blk in enumerate(model.layers):
+            q, k_new, v_new = blk.mixer.project_qkv(blk.norm1(x), posd)
+            # the new token's KV goes straight from the device into the pool
+            self.cache.write_token(widx, i, k_new[:, 0], v_new[:, 0])
+            o = paged_attention(q.reshape(B, lay.n_q_eff, cfg.head_dim),
+                                self.cache.k_pools[i], self.cache.v_pools[i],
+                                pt, ln)
+            x = x + blk.mixer.out_proj(o[:, None], pol)
+            x = x + blk.ffn(blk.norm2(x), pol)
+        logits = model.logits_out(model.final_norm(x))
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        self.cache.commit_token(sids, pos)
+        if self.tp_plan is not None:
+            self.tp_plan.on_decode(self, B)
+        self.stats.decode_batches += 1
+        self.stats.decode_tokens += B
+        for r, t in zip(reqs, nxt):
+            r.generated.append(int(t))
+            total = len(r.prompt) + len(r.generated)
+            if len(r.generated) >= r.max_new_tokens or total >= self.max_len - 1:
+                self._finish(r)
+
+    def _finish(self, req: Request) -> None:
+        req.state = SeqState.DONE
+        req.finish_time = self.now()
+        if req.sid >= 0:
+            self.cache.release(req.sid)
+            req.sid = -1
+
+    # ------------------------------------------------------------------ run
+    def _in_flight(self) -> bool:
+        if self.draining:
+            # fresh never-admitted requests will not be admitted
+            return any(not r.done and not (r.state is SeqState.PENDING
+                                           and r.admit_time is None)
+                       for r in self.requests.values())
+        return any(not r.done for r in self.requests.values())
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """One engine step: admit/resume, chunked prefill, prefetch, decode.
+        Returns True while any request is in flight."""
+        if self.fault_plan is not None:
+            self._apply_faults()
+        pre0 = self.stats.preempted
+        rec0 = self.stats.recovered_requests
+        progress = 0
+        if self._hold_admit > 0:
+            # the post-fault backoff window ticking down is forward motion
+            self._hold_admit -= 1
+            progress += 1
+            if self._hold_admit == 0:
+                self._backoff = self.admit_backoff_steps
+        progress += self._admit()
+        progress += self._prefill_step()
+        decoding = self._in_state(SeqState.DECODING)
+        if decoding:
+            batch = self._ensure_decode_pages(decoding)
+            if batch:
+                self._prefetch_resumed()
+                self._decode_batch(batch)
+                progress += len(batch)
+        # a preemption frees pages and a fault replay requeues work for the
+        # next step: both count as progress
+        progress += self.stats.preempted - pre0
+        progress += self.stats.recovered_requests - rec0
+        if self.um is not None:
+            self.um.sync()  # apply counter-driven delayed migrations
+        self._steps += 1
+        in_flight = self._in_flight()
+        if in_flight and progress == 0:
+            raise RuntimeError(
+                "scheduler stalled: KV pool cannot back any in-flight request "
+                f"(free_pages={self.cache.free_pages()}, "
+                f"states={[r.state.value for r in self.requests.values()]})")
+        return in_flight
+
+    def run_to_completion(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
+        steps = 0
+        while self.step():
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError("serve did not converge")
+        return {rid: r.generated for rid, r in self.requests.items()}

@@ -12,9 +12,14 @@ import pytest
 import torch
 
 from repro_torch.apps import run_hotspot, run_qsim, run_srad
+from repro_torch.configs import get_config
 from repro_torch.kernels import common
+from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.qv_gate import apply_two_qubit_gate
 from repro_torch.kernels.stencil5 import stencil5
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import init_params
+from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -26,15 +31,23 @@ def _banned(module: str) -> bool:
     return top in ("jax", "repro")
 
 
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, json; import repro_torch, repro_torch.apps, "
             "repro_torch.core, repro_torch.kernels.stencil5, "
-            "repro_torch.kernels.qv_gate; print(json.dumps(sorted(sys.modules)))")
+            "repro_torch.kernels.qv_gate, repro_torch.configs, "
+            "repro_torch.models, repro_torch.serve, "
+            "repro_torch.kernels.paged_attention, repro_torch.launch.serve; "
+            "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True).stdout
     mods = json.loads(out)
     assert "repro_torch.apps.qsim" in mods
+    assert "repro_torch.serve.engine" in mods
     assert [m for m in mods if _banned(m)] == []
 
 
@@ -54,20 +67,38 @@ def test_source_imports_no_jax_or_repro(path):
 
 @pytest.mark.parametrize("run", [run_hotspot, run_srad, run_qsim])
 def test_entry_points_default_to_the_card(run, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run("system")
 
 
+@pytest.mark.parametrize("entry", [
+    lambda cfg: init_params(cfg),
+    lambda cfg: ServeEngine(cfg, init_params(cfg, device="cpu")),
+    lambda cfg: launch_serve.main(["--arch", "yi-6b", "--reduced"]),
+], ids=["init_params", "ServeEngine", "launch.serve"])
+def test_serve_entry_points_default_to_the_card(entry, monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry(get_config("yi-6b").reduced())
+
+
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
-    before = (stencil5.launches, apply_two_qubit_gate.launches)
+    counters = (stencil5, apply_two_qubit_gate, paged_attention)
+    before = [fn.launches for fn in counters]
     with pytest.raises(ValueError, match="CUDA"):
         stencil5(torch.empty((4, 4), device="meta"), 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         apply_two_qubit_gate(torch.empty(16, dtype=torch.complex64,
                                          device="meta"),
                              torch.eye(4, dtype=torch.complex64), 0, 1, 4)
-    assert (stencil5.launches, apply_two_qubit_gate.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention(torch.empty((2, 8, 16), device="meta"),
+                        torch.empty((4, 8, 2, 16), device="meta"),
+                        torch.empty((4, 8, 2, 16), device="meta"),
+                        torch.empty((2, 3), dtype=torch.int32, device="meta"),
+                        torch.empty(2, dtype=torch.int32, device="meta"))
+    assert [fn.launches for fn in counters] == before
 
 
 @pytest.mark.parametrize("q1,q2", [(0, 0), (4, 1), (-1, 2)])
