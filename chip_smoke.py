@@ -5,13 +5,17 @@
 
 Needs one CUDA card and ``nvcc``. It builds the CUDA kernels from
 ``src/repro_torch/csrc``, holds each against its plain PyTorch version on the
-card, drives the port's two main paths through the kernels, counting each
-kernel's launches: hotspot, srad and qiskit at full size, and paged-KV
-serving of full-width yi-6b (8 requests through ``ServeEngine``). It holds
-the apps' card results against the CPU on small shared inputs and their
-charges against the parity fixture, the paged engine's tokens against the
-dense decode path at full width and against the CPU on reduced yi-6b, times
-each kernel at its main-path shape, and prints:
+card, drives the port's three main paths through the kernels, counting each
+kernel's launches: the six paper apps at full size (hotspot, srad and qiskit
+through their kernels; pathfinder, needle and bfs in plain torch), paged-KV
+serving of full-width yi-6b (8 requests through ``ServeEngine``), and the
+paper-figure benchmark harness (``repro_torch.bench.run``, whose
+``kernels_micro`` launches every kernel, flash attention among them). It
+holds the apps' card results against the CPU on small shared inputs and
+their charges against the parity fixture, the paged engine's tokens against
+the dense decode path at full width and against the CPU on reduced yi-6b,
+the harness's figure rows against the same modules on the CPU, times each
+kernel at its main-path shape, and prints:
 
 * one JSON line per phase;
 * ``{"kernels": [...]}``: each kernel's launches on the main path, largest
@@ -40,13 +44,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor and
+# dense bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 HOTSPOT = dict(rows=16384, cols=16384, iters=8)
 SRAD = dict(rows=16384, cols=16384, iters=12)
 QISKIT = dict(n_qubits=31)  # default depth 7: 105 gates on 16 GiB
+PATHFINDER = dict(rows=8192, cols=131072)  # 4 GiB int32 wall, 8191 DP rows
+NEEDLE = dict(n=16384)                     # 1 GiB int32 similarity matrix
+BFS = dict(n_nodes=1 << 24, deg=8)         # 512 MiB of edges
 
 STENCIL_SHAPES = [(16384, 16384), (1000, 777), (1, 513), (513, 1)]
 STENCIL_TOL = 1e-5  # abs, unit-normal input; the kernel keeps the plain order
@@ -67,6 +76,28 @@ PAGED_SHAPES = [(2, 8, 2, 64, 16, 16, 4), (3, 4, 4, 128, 32, 8, 6),
                 (1, 16, 1, 64, 8, 32, 3)]
 PAGED_MAIN = (8, 32, 4, 128, 1025, 16, 128)
 PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# flash attention: the 16 cases of tests/test_kernels.py as
+# (B, Sq, Sk, H, Hkv, D) x dtype x window, causal; Sq != Sk both ways; the
+# non-causal cases of tests/test_torch_flash_attention.py as
+# ((B, Sq, Sk, H, Hkv, D), window); then the full-width prefill shapes:
+# yi-6b (causal) and recurrentgemma-2b's local attention (causal, window
+# 2048), fp32 and bf16; tolerances as that test's. The harness's main path
+# is kernels_micro's (1, 256, 256, 8, 2, 64).
+FLASH_SHAPES = [(2, 256, 256, 8, 2, 64), (1, 512, 512, 4, 4, 128),
+                (2, 128, 128, 16, 1, 64), (1, 256, 256, 6, 2, 128)]
+FLASH_UNEVEN = [(1, 128, 256, 4, 2, 64), (1, 256, 128, 4, 2, 64),
+                (1, 100, 77, 4, 1, 32), (1, 300, 300, 2, 1, 256)]
+FLASH_WINDOWS = (0, 64)
+FLASH_NONCAUSAL = [((2, 64, 192, 2, 1, 32), 0), ((1, 128, 256, 4, 2, 64), 64),
+                   ((1, 256, 128, 4, 1, 128), 0)]
+# rows i >= Sk + window - 1 see no key (the kernel gives them zeros), in a
+# 64-row block whose other rows do see keys: (shape, window)
+FLASH_MASKED = ((1, 300, 100, 4, 1, 64), 64)
+FLASH_MICRO = (1, 256, 256, 8, 2, 64)
+FLASH_FULL = {"yi-6b": ((1, 4096, 4096, 32, 4, 128), 0),
+              "recurrentgemma-2b": ((1, 8192, 8192, 10, 1, 256), 2048)}
+FLASH_TOL = PAGED_TOL
+FLASH_BLOCK = 512  # q and kv block of the _blocked_causal cross-check
 # the serving main path: full-width yi-6b, fp32, random weights from a seed
 SERVE = dict(arch="yi-6b", max_seqs=8, max_len=2048, page_size=16,
              prefill_chunk=128, requests=8, prompt_lens=(200, 1000),
@@ -108,10 +139,28 @@ def median_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_inputs(shape, dtype, gen):
+    """Random q (B,Sq,H,D) and k, v (B,Sk,Hkv,D) on the card."""
+    B, Sq, Sk, H, Hkv, D = shape
+    return (torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dtype),
+            torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype),
+            torch.randn(B, Sk, Hkv, D, device="cuda", generator=gen).to(dtype))
+
+
+def flash_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The visible (query row, key) pairs of one head: the work the mask
+    leaves."""
+    qpos = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 def random_state(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -170,7 +219,8 @@ def phase_kernels_vs_plain() -> dict:
     from repro_torch.kernels.stencil5 import stencil5, stencil5_ref
 
     gen = torch.Generator("cuda").manual_seed(0)
-    errs = {"stencil5": 0.0, "qv_gate": 0.0, "paged_attention": 0.0}
+    errs = {"stencil5": 0.0, "qv_gate": 0.0, "paged_attention": 0.0,
+            "flash_attention": 0.0}
     rows = []
     for shape in STENCIL_SHAPES:
         g = torch.randn(shape, device="cuda", generator=gen)
@@ -237,42 +287,140 @@ def phase_kernels_vs_plain() -> dict:
                              dtype=str(dtype), lengths=args[4].tolist(),
                              max_abs_err=err, tol=tol))
             del args, out
+    rows += check_flash(gen, errs)
     emit("kernel_vs_plain", checks=rows)
     return errs
 
 
+def check_flash(gen, errs) -> list:
+    """flash_attention against its plain version at the test's cases, at
+    uneven lengths, without the causal mask, at the harness's shape and at
+    the full-width prefill shapes; its zeros for rows that see no key; and
+    against the model's blocked attention at yi-6b's shape.
+    ``errs["flash_attention"]`` gets the largest fp32 error at the harness's
+    and the full-width shapes."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+    from repro_torch.models.attention import _blocked_causal
+
+    cases = [(s, w, True, "test") for s in FLASH_SHAPES for w in FLASH_WINDOWS]
+    cases += [(s, w, True, "uneven") for s in FLASH_UNEVEN
+              for w in FLASH_WINDOWS
+              if not (w and s[1] > s[2] + w - 1)]  # every row sees a key
+    cases += [(s, w, False, "non-causal") for s, w in FLASH_NONCAUSAL]
+    cases += [(FLASH_MICRO, 0, True, "main")]
+    cases += [(s, w, True, name) for name, (s, w) in FLASH_FULL.items()]
+    rows = []
+    for shape, window, causal, kind in cases:
+        for dtype, tol in FLASH_TOL.items():
+            q, k, v = flash_inputs(shape, dtype, gen)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            err = float((out.float() - want.float()).abs().max())
+            del q, k, v, out, want
+            check(err <= tol, f"flash_attention {shape} w={window} "
+                  f"causal={causal} {dtype} err {err}")
+            if kind in ("main", *FLASH_FULL) and dtype == torch.float32:
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+            rows.append(dict(kernel="flash_attention", case=kind,
+                             shape=list(shape), window=window, causal=causal,
+                             dtype=str(dtype), max_abs_err=err, tol=tol))
+        torch.cuda.empty_cache()
+    # rows with no visible key: zeros from the kernel, the rest as the plain
+    # version's, causal or not
+    shape, window = FLASH_MASKED
+    dead = shape[2] + window - 1  # the first row that sees no key
+    for causal in (True, False):
+        for dtype, tol in FLASH_TOL.items():
+            q, k, v = flash_inputs(shape, dtype, gen)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            err = float((out[:, :dead].float()
+                         - want[:, :dead].float()).abs().max())
+            nonzero = int(out[:, dead:].count_nonzero())
+            check(err <= tol and nonzero == 0,
+                  f"flash_attention rows without a key: {shape} w={window} "
+                  f"causal={causal} {dtype} err {err}, {nonzero} nonzero")
+            rows.append(dict(kernel="flash_attention", case="no-key rows",
+                             shape=list(shape), window=window, causal=causal,
+                             dtype=str(dtype), max_abs_err=err, tol=tol,
+                             dead_rows_nonzero=nonzero))
+    # the model's blocked path at yi-6b's shape, heads grouped (B,S,N,P,D)
+    B, S, _, H, Hkv, D = FLASH_FULL["yi-6b"][0]
+    q, k, v = flash_inputs((B, S, S, H, Hkv, D), torch.float32, gen)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    blocked = _blocked_causal(q.reshape(B, S, Hkv, H // Hkv, D), k, v,
+                              FLASH_BLOCK, FLASH_BLOCK, 0).reshape(B, S, H, D)
+    err = float((out - blocked).abs().max())
+    del q, k, v, out, blocked
+    torch.cuda.empty_cache()
+    tol = FLASH_TOL[torch.float32]
+    check(err <= tol, f"flash_attention vs _blocked_causal err {err}")
+    rows.append(dict(kernel="flash_attention", case="vs _blocked_causal",
+                     shape=[B, S, S, H, Hkv, D], blocks=FLASH_BLOCK,
+                     dtype="torch.float32", max_abs_err=err, tol=tol))
+    return rows
+
+
 def kernel_counters() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.qv_gate import apply_two_qubit_gate
     from repro_torch.kernels.stencil5 import stencil5
 
     return {"stencil5": stencil5, "qv_gate": apply_two_qubit_gate,
-            "paged_attention": paged_attention}
+            "paged_attention": paged_attention,
+            "flash_attention": flash_attention}
+
+
+def zero_counters() -> dict:
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
 
 
 def phase_apps() -> dict:
     """The main path: each app at full size on the card, with every launch
     counter set to 0 just before it and read just after."""
-    from repro_torch.apps import run_hotspot, run_qsim, run_srad
+    from repro_torch.apps import (
+        run_bfs,
+        run_hotspot,
+        run_needle,
+        run_pathfinder,
+        run_qsim,
+        run_srad,
+    )
 
-    counters = kernel_counters()
-    total = dict.fromkeys(counters, 0)
+    total = dict.fromkeys(kernel_counters(), 0)
     rows = []
+    # pathfinder, needle and bfs have no TPU kernel: plain torch
     runs = [("hotspot", run_hotspot, HOTSPOT, "stencil5"),
             ("srad", run_srad, SRAD, "stencil5"),
-            ("qiskit", run_qsim, QISKIT, "qv_gate")]
+            ("qiskit", run_qsim, QISKIT, "qv_gate"),
+            ("pathfinder", run_pathfinder, PATHFINDER, None),
+            ("needle", run_needle, NEEDLE, None),
+            ("bfs", run_bfs, BFS, None)]
     for name, run, kw, kernel in runs:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
+        counters = zero_counters()
         t0 = time.perf_counter()
         r = run("system", device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
-        check(launches[kernel] > 0, f"{name} never launched {kernel}")
+        check(kernel is None or launches[kernel] > 0,
+              f"{name} never launched {kernel}")
         check(math.isfinite(r.checksum), f"{name} checksum {r.checksum}")
+        if name == "bfs":  # a random graph of out-degree 8 reaches nearly all
+            check(0.99 * kw["n_nodes"] <= r.checksum <= kw["n_nodes"],
+                  f"bfs visited {r.checksum} of {kw['n_nodes']}")
         if name == "qiskit":
             check(abs(r.checksum - 1.0) <= QISKIT_NORM_TOL,
                   f"qiskit norm {r.checksum}")
@@ -302,6 +450,12 @@ def phase_small_vs_cpu() -> None:
                       power=rng.random(shape, np.float32))
         elif name == "srad":
             kw.update(img=rng.random((kw["rows"], kw["cols"]), np.float32))
+        elif name == "pathfinder":
+            kw.update(data=rng.integers(0, 10, (kw["rows"], kw["cols"]),
+                                        dtype=np.int32))
+        elif name == "needle":
+            kw.update(sim=rng.integers(-2, 3, (kw["n"], kw["n"]),
+                                       dtype=np.int32))
         card = spec.run("system", device="cuda", **kw).checksum
         cpu = spec.run("system", device="cpu", **kw).checksum
         check(math.isclose(card, cpu, rel_tol=SMALL_RTOL),
@@ -315,7 +469,7 @@ def phase_parity() -> None:
 
     fixture = json.loads(PARITY_FIXTURE.read_text())
     keys = []
-    for name in ("hotspot", "srad", "qiskit"):
+    for name in APPS:
         for pol in ("explicit", "managed", "system"):
             key = f"fig3/{name}/{pol}"
             got = charge_snapshot(APPS[name].run(pol, device="cuda",
@@ -386,10 +540,8 @@ def phase_serve():
     eng._decode_batch = timed(eng._decode_batch, "decode")
     real = engine_mod.paged_attention
     engine_mod.paged_attention = recording
-    counters = kernel_counters()
     try:
-        for fn in counters.values():
-            fn.launches = 0
+        counters = zero_counters()
         t0 = time.perf_counter()
         out = eng.run_to_completion()
         torch.cuda.synchronize()
@@ -499,6 +651,103 @@ def phase_serve_card_vs_cpu() -> None:
          tokens_equal=True, tokens=toks["cuda"])
 
 
+def run_harness(argv) -> tuple:
+    """``python -m repro_torch.bench.run`` in this process: its exit code
+    and its CSV rows as {name: (us_per_call, derived)}, in order."""
+    import contextlib
+    import io
+
+    from repro_torch.bench import run as bench_run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_run.main(argv)
+    lines = buf.getvalue().splitlines()
+    check(lines and lines[0] == "name,us_per_call,derived",
+          f"harness {argv} printed no CSV header")
+    rows = {}
+    for ln in lines[1:]:
+        name, us, derived = ln.split(",", 2)
+        rows[name] = (us, derived)
+    return rc, rows
+
+
+def phase_bench() -> dict:
+    """The harness's main path: every module of repro_torch.bench.run on the
+    card, every launch counter set to 0 just before and read just after;
+    kernels_micro launches each kernel. The figure modules print modeled
+    charges, so their rows must equal the same modules' rows on the CPU."""
+    from repro_torch.bench.run import MODULES
+
+    torch.cuda.empty_cache()
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    rc, card = run_harness([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(rc == 0, f"repro_torch.bench.run exited {rc} on the card")
+    for k, n in launches.items():
+        check(n > 0, f"repro_torch.bench.run never launched {k}")
+    micro = {k: v for k, v in card.items() if k.startswith("kernel/")}
+    check(len(micro) == 4, f"kernels_micro printed {sorted(micro)}")
+    figures = {k: v for k, v in card.items() if not k.startswith("kernel/")}
+    rc, cpu = run_harness(["--device", "cpu"]
+                          + [m for m in MODULES if "kernels_micro" not in m])
+    check(rc == 0, f"repro_torch.bench.run --device cpu exited {rc}")
+    check(list(figures) == list(cpu), "the card's figure rows differ in "
+          "name or order from the CPU's")
+    differ = [k for k in figures if figures[k] != cpu[k]]
+    check(not differ, f"figure rows differ between card and cpu: {differ}")
+    emit("bench", modules=MODULES, wall_s=wall, figure_rows=len(figures),
+         figure_rows_equal_cpu=True, launches=launches,
+         kernels_micro_us_on_card={k: (float(us), d)
+                                   for k, (us, d) in micro.items()})
+    return launches
+
+
+def time_flash(shape, window, dtype, gen) -> dict:
+    """flash_attention, its plain version and one SDPA call (the library
+    yardstick, never used on the port's path) on the same inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+
+    B, Sq, Sk, H, Hkv, D = shape
+    q, k, v = flash_inputs(shape, dtype, gen)
+    size = q.element_size()
+    flops = 4.0 * D * B * H * flash_pairs(Sq, Sk, True, window)
+    b, by = bound_ms(size * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D), flops,
+                     FP32_FLOP_PER_S if dtype == torch.float32
+                     else BF16_FLOP_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D)
+    if window:
+        qpos = torch.arange(Sq, device="cuda")[:, None]
+        kpos = torch.arange(Sk, device="cuda")[None, :]
+        band = (kpos <= qpos) & (kpos > qpos - window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                  enable_gqa=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    row = dict(
+        shape=list(shape), window=window, dtype=str(dtype),
+        ms=median_ms(lambda: flash_attention(q, k, v, window=window), 10),
+        plain_ms=median_ms(lambda: flash_attention_ref(q, k, v, window=window),
+                           3, warmup=1),
+        bound_ms=b, bound_by=by, flops=flops,
+        library_ms=median_ms(library, 10))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_timing(paged_args) -> dict:
     """Each kernel and its plain version at the main path's shape."""
     from repro_torch.apps.qsim import _random_su4
@@ -574,6 +823,15 @@ def phase_timing(paged_args) -> dict:
     out["paged_attention_decode_shape"] = paged_timing(paged_inputs(
         PAGED_MAIN, torch.float32, gen, engine_like=True))
     del scratch
+    torch.cuda.empty_cache()
+
+    # flash attention at the full-width prefill shapes; yi-6b's fp32 row
+    # stands for the kernel in the kernels line
+    for name, (shape, window) in FLASH_FULL.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"flash_attention_{name}_{str(dtype)[6:]}"
+            out[key] = time_flash(shape, window, dtype, gen)
+    out["flash_attention"] = out["flash_attention_yi-6b_float32"]
     emit("timing", kernels=out)
     return out
 
@@ -592,6 +850,7 @@ def main() -> int:
     phase_dense_check(model)
     del model
     phase_serve_card_vs_cpu()
+    launches["flash_attention"] = phase_bench()["flash_attention"]
     times = phase_timing(paged_args)
     del paged_args
 
@@ -607,6 +866,9 @@ def main() -> int:
         "paged_attention": (
             "src/repro_torch/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention/paged_attention.py:68"),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:86"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -38,6 +38,10 @@ SIGNATURES = {
     "paged_attention": {
         name: (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P)
         for name in ("paged_attention_f32", "paged_attention_bf16")},
+    "flash_attention": {
+        name: (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+               _P)
+        for name in ("flash_attention_f32", "flash_attention_bf16")},
 }
 
 

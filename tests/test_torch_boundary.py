@@ -1,6 +1,7 @@
 """The port's boundary: it imports neither JAX nor the JAX package, its entry
 points default to the CUDA card, and its kernel wrappers never fall back."""
 import ast
+import importlib
 import json
 import os
 import subprocess
@@ -11,9 +12,18 @@ import jax  # noqa: F401  (each port test file runs beside JAX)
 import pytest
 import torch
 
-from repro_torch.apps import run_hotspot, run_qsim, run_srad
+from repro_torch.apps import (
+    run_bfs,
+    run_hotspot,
+    run_needle,
+    run_pathfinder,
+    run_qsim,
+    run_srad,
+)
+from repro_torch.bench.run import MODULES as BENCH_MODULES
 from repro_torch.configs import get_config
 from repro_torch.kernels import common
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.qv_gate import apply_two_qubit_gate
 from repro_torch.kernels.stencil5 import stencil5
@@ -28,7 +38,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _banned(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "repro")
+    return top in ("jax", "repro", "benchmarks")
 
 
 def _no_card(monkeypatch):
@@ -40,7 +50,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core, repro_torch.kernels.stencil5, "
             "repro_torch.kernels.qv_gate, repro_torch.configs, "
             "repro_torch.models, repro_torch.serve, "
-            "repro_torch.kernels.paged_attention, repro_torch.launch.serve; "
+            "repro_torch.kernels.paged_attention, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention, repro_torch.bench.run; "
+            "[__import__(m) for m in repro_torch.bench.run.MODULES]; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -48,6 +60,8 @@ def test_import_leaves_jax_and_repro_out():
     mods = json.loads(out)
     assert "repro_torch.apps.qsim" in mods
     assert "repro_torch.serve.engine" in mods
+    assert "repro_torch.apps.bfs" in mods
+    assert "repro_torch.bench.kernels_micro" in mods
     assert [m for m in mods if _banned(m)] == []
 
 
@@ -65,7 +79,8 @@ def test_source_imports_no_jax_or_repro(path):
     assert found == []
 
 
-@pytest.mark.parametrize("run", [run_hotspot, run_srad, run_qsim])
+@pytest.mark.parametrize("run", [run_hotspot, run_srad, run_qsim,
+                                 run_pathfinder, run_needle, run_bfs])
 def test_entry_points_default_to_the_card(run, monkeypatch):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -83,8 +98,16 @@ def test_serve_entry_points_default_to_the_card(entry, monkeypatch):
         entry(get_config("yi-6b").reduced())
 
 
+@pytest.mark.parametrize("module", BENCH_MODULES)
+def test_bench_modules_default_to_the_card(module, monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(module).run()
+
+
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
-    counters = (stencil5, apply_two_qubit_gate, paged_attention)
+    counters = (stencil5, apply_two_qubit_gate, paged_attention,
+                flash_attention)
     before = [fn.launches for fn in counters]
     with pytest.raises(ValueError, match="CUDA"):
         stencil5(torch.empty((4, 4), device="meta"), 0.1)
@@ -98,6 +121,10 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
                         torch.empty((4, 8, 2, 16), device="meta"),
                         torch.empty((2, 3), dtype=torch.int32, device="meta"),
                         torch.empty(2, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(torch.empty((1, 8, 4, 32), device="meta"),
+                        torch.empty((1, 8, 2, 32), device="meta"),
+                        torch.empty((1, 8, 2, 32), device="meta"))
     assert [fn.launches for fn in counters] == before
 
 
