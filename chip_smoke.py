@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and ``nvcc``. It builds the CUDA kernels from
-``src/repro_torch/csrc``, holds each against its plain PyTorch version on the
-card, drives the port's three main paths through the kernels, counting each
-kernel's launches: the six paper apps at full size (hotspot, srad and qiskit
+``src/repro_torch/csrc`` (and fails unless the bf16 flash kernels hold
+``HGMMA`` tensor-core instructions and spill nothing), holds each against its
+plain PyTorch version on the card (flash attention in bf16 on the tensor
+cores, paged attention also at its chunk boundaries), drives the port's
+three main paths through the kernels, counting each kernel's launches: the six paper apps at full size (hotspot, srad and qiskit
 through their kernels; pathfinder, needle and bfs in plain torch), paged-KV
 serving of full-width yi-6b (8 requests through ``ServeEngine``), and the
 paper-figure benchmark harness (``repro_torch.bench.run``, whose
@@ -76,6 +78,10 @@ PAGED_SHAPES = [(2, 8, 2, 64, 16, 16, 4), (3, 4, 4, 128, 32, 8, 6),
                 (1, 16, 1, 64, 8, 32, 3)]
 PAGED_MAIN = (8, 32, 4, 128, 1025, 16, 128)
 PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the split kernel's chunk boundaries at yi-6b's decode widths: one sequence
+# each of 1, C - 1, C, C + 1 and NP * PS tokens (C = 64 tokens a chunk)
+PAGED_SPLIT = (5, 32, 4, 128, 1025, 16, 128)
+PAGED_MIN_BLOCKS = 132  # pass 1 at the decode shape fills the H100's SMs
 # flash attention: the 16 cases of tests/test_kernels.py as
 # (B, Sq, Sk, H, Hkv, D) x dtype x window, causal; Sq != Sk both ways; the
 # non-causal cases of tests/test_torch_flash_attention.py as
@@ -120,9 +126,14 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def median_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs, from CUDA events;
-    ``before()`` runs ahead of each timed run, outside the events."""
+def median_ms(fn, reps: int, warmup: int = 2, before=None,
+              burst: int = 5) -> float:
+    """Median device time of one ``fn()`` over ``reps`` timed runs, from
+    CUDA events. A timed run is ``burst`` calls back to back, so the host's
+    launch of one call overlaps the card's work on the one before; with
+    ``before`` it is one call, and ``before()`` runs ahead of it, outside
+    the events."""
+    n = 1 if before is not None else burst
     for _ in range(warmup):
         fn()
     times = []
@@ -132,10 +143,11 @@ def median_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        fn()
+        for _ in range(n):
+            fn()
         t1.record()
         t1.synchronize()
-        times.append(t0.elapsed_time(t1))
+        times.append(t0.elapsed_time(t1) / n)
     return statistics.median(times)
 
 
@@ -169,22 +181,74 @@ def random_state(n: int, gen: torch.Generator) -> torch.Tensor:
     return st.div_(torch.linalg.vector_norm(st))
 
 
+def ptxas_entries(report: str, needle: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the
+    entry functions whose mangled name holds ``needle``, from ptxas -v."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if needle in ln else None
+            if name:
+                out[name] = [None, None, None]
+        elif name and "Used" in ln and "registers" in ln:
+            out[name][0] = int(ln.split("Used")[1].split()[0])
+        elif name and "spill stores" in ln:
+            parts = ln.split(",")
+            out[name][1] = int(parts[1].split()[0])
+            out[name][2] = int(parts[2].split()[0])
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def sass_counts(lib_path, needle: str, opcode: str) -> dict:
+    """{kernel: count of ``opcode``} in the SASS of the entry functions of
+    ``lib_path`` whose name holds ``needle`` (cuobjdump -sass)."""
+    from repro_torch.kernels.common import _nvcc
+
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            name = name if needle in name else None
+            if name:
+                out[name] = 0
+        elif name and opcode in ln:
+            out[name] += 1
+    return out
+
+
 def phase_build():
+    """Build every kernel; the bf16 flash kernel must hold tensor-core
+    instructions (HGMMA, Hopper's wgmma) and spill nothing."""
     from repro_torch.kernels.common import library
+    from repro_torch.kernels.flash_attention.ops import SM90_HEAD_DIMS
 
     lib = library()
     report = [ln.strip() for ln in lib.ptxas_report.splitlines()
               if "Compiling entry" in ln or "Used" in ln]
+    so = next(p for p in lib.paths if p.name.startswith("libflash_attention_sm90_"))
+    hgmma = sass_counts(so, "flash_attention_sm90_kernel", "HGMMA")
+    regs = ptxas_entries(lib.ptxas_report, "flash_attention_sm90_kernel")
+    check(len(hgmma) == len(SM90_HEAD_DIMS)
+          and all(n > 0 for n in hgmma.values()),
+          f"HGMMA instructions in the bf16 flash kernels: {hgmma}")
+    # an empty report means the libraries were loaded from an earlier build
+    check(not regs or all(r[1] == 0 and r[2] == 0 for r in regs.values()),
+          f"the bf16 flash kernels spill: {regs}")
     emit("build", seconds=lib.build_seconds,
-         libraries=[p.name for p in lib.paths], ptxas=report)
+         libraries=[p.name for p in lib.paths], ptxas=report,
+         flash_bf16_hgmma=hgmma,
+         flash_bf16_registers_spill_store_load=regs)
 
 
-def paged_inputs(shape, dtype, gen, engine_like: bool):
+def paged_inputs(shape, dtype, gen, engine_like: bool, lengths=None):
     """Random q and pools of ``shape`` on the card. ``engine_like``: lengths
-    drawn from 1 .. NP * PS with a partial last page, page ids scattered
-    over the non-null pages, zeros past each sequence's pages, as the
-    engine's table holds them; else tests/test_kernels.py's lengths and
-    table."""
+    drawn from 1 .. NP * PS with a partial last page (or ``lengths``), page
+    ids scattered over the non-null pages, zeros past each sequence's
+    pages, as the engine's table holds them; else tests/test_kernels.py's
+    lengths and table."""
     B, H, Hkv, D, P, PS, NP = shape
     q = torch.randn(B, H, D, device="cuda", generator=gen).to(dtype)
     kp = torch.randn(P, PS, Hkv, D, device="cuda", generator=gen).to(dtype)
@@ -192,9 +256,13 @@ def paged_inputs(shape, dtype, gen, engine_like: bool):
     if engine_like:
         pt = (torch.randperm(P - 1, device="cuda", generator=gen)[:B * NP]
               + 1).reshape(B, NP)
-        ln = torch.randint(1, NP * PS + 1, (B,), device="cuda", generator=gen)
-        if not bool((ln % PS).any()):
-            ln[0] -= 1
+        if lengths is not None:
+            ln = torch.tensor(lengths, device="cuda")
+        else:
+            ln = torch.randint(1, NP * PS + 1, (B,), device="cuda",
+                               generator=gen)
+            if not bool((ln % PS).any()):
+                ln[0] -= 1
         live = -(-ln // PS)
         pt = torch.where(torch.arange(NP, device="cuda")[None] < live[:, None],
                          pt, 0)
@@ -288,8 +356,47 @@ def phase_kernels_vs_plain() -> dict:
                              max_abs_err=err, tol=tol))
             del args, out
     rows += check_flash(gen, errs)
+    # its own generator: the flash checks draw what they drew before it
+    rows += check_paged_splits(torch.Generator("cuda").manual_seed(2))
     emit("kernel_vs_plain", checks=rows)
     return errs
+
+
+def check_paged_splits(gen) -> list:
+    """paged_attention at lengths on and next to the chunk boundaries, with
+    engine-like scattered pages, fp32 and bf16; and the size of pass 1's
+    grid at the decode shape."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_ref,
+    )
+    from repro_torch.kernels.paged_attention.ops import CHUNK, split_plan
+
+    NP, PS = PAGED_SPLIT[6], PAGED_SPLIT[5]
+    lengths = [1, CHUNK - 1, CHUNK, CHUNK + 1, NP * PS]
+    rows = []
+    for dtype, tol in PAGED_TOL.items():
+        args = paged_inputs(PAGED_SPLIT, dtype, gen, engine_like=True,
+                            lengths=lengths)
+        out = paged_attention(*args)
+        torch.cuda.synchronize()
+        err = float((out.float() - paged_attention_ref(*args).float())
+                    .abs().max())
+        check(err <= tol, f"paged_attention split boundaries {dtype} err {err}")
+        rows.append(dict(kernel="paged_attention", case="split boundaries",
+                         shape=list(PAGED_SPLIT), dtype=str(dtype),
+                         lengths=lengths, chunk=CHUNK, max_abs_err=err,
+                         tol=tol))
+        del args, out
+    B, H, Hkv, D, P, PS, NP = PAGED_MAIN
+    splits, _ = split_plan(B, H, D, PS, NP)
+    blocks = B * Hkv * splits
+    check(blocks >= PAGED_MIN_BLOCKS,
+          f"pass 1's grid at the decode shape is {blocks} blocks")
+    rows.append(dict(kernel="paged_attention", case="pass-1 grid",
+                     shape=list(PAGED_MAIN), grid=[B * Hkv, splits],
+                     blocks=blocks, min_blocks=PAGED_MIN_BLOCKS))
+    return rows
 
 
 def check_flash(gen, errs) -> list:
@@ -303,6 +410,7 @@ def check_flash(gen, errs) -> list:
         flash_attention,
         flash_attention_ref,
     )
+    from repro_torch.kernels.flash_attention.ops import _entry
     from repro_torch.models.attention import _blocked_causal
 
     cases = [(s, w, True, "test") for s in FLASH_SHAPES for w in FLASH_WINDOWS]
@@ -325,7 +433,11 @@ def check_flash(gen, errs) -> list:
                   f"causal={causal} {dtype} err {err}")
             if kind in ("main", *FLASH_FULL) and dtype == torch.float32:
                 errs["flash_attention"] = max(errs["flash_attention"], err)
+            if kind in FLASH_FULL and dtype == torch.bfloat16:
+                errs["flash_attention_bf16"] = max(
+                    errs.get("flash_attention_bf16", 0.0), err)
             rows.append(dict(kernel="flash_attention", case=kind,
+                             route=_entry(dtype, shape[5]),
                              shape=list(shape), window=window, causal=causal,
                              dtype=str(dtype), max_abs_err=err, tol=tol))
         torch.cuda.empty_cache()
@@ -346,6 +458,7 @@ def check_flash(gen, errs) -> list:
                   f"flash_attention rows without a key: {shape} w={window} "
                   f"causal={causal} {dtype} err {err}, {nonzero} nonzero")
             rows.append(dict(kernel="flash_attention", case="no-key rows",
+                             route=_entry(dtype, shape[5]),
                              shape=list(shape), window=window, causal=causal,
                              dtype=str(dtype), max_abs_err=err, tol=tol,
                              dead_rows_nonzero=nonzero))
@@ -706,6 +819,29 @@ def phase_bench() -> dict:
     return launches
 
 
+def device_kernels(fn, calls: int = 3) -> list:
+    """The device kernels ``calls`` runs of ``fn`` launch, from a
+    torch.profiler trace: [name, count, device microseconds in all], the
+    longest first; empty where the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0 and e.key and not e.key.startswith(("cuda", "aten::")):
+            rows.append([e.key[:120], e.count, float(us)])
+    return sorted(rows, key=lambda r: -r[2])[:4]
+
+
 def time_flash(shape, window, dtype, gen) -> dict:
     """flash_attention, its plain version and one SDPA call (the library
     yardstick, never used on the port's path) on the same inputs."""
@@ -739,6 +875,10 @@ def time_flash(shape, window, dtype, gen) -> dict:
     row = dict(
         shape=list(shape), window=window, dtype=str(dtype),
         ms=median_ms(lambda: flash_attention(q, k, v, window=window), 10),
+        trace=(device_kernels(lambda: flash_attention(q, k, v, window=window))
+               if dtype == torch.bfloat16 else None),
+        library_trace=(device_kernels(library)
+                       if dtype == torch.bfloat16 else None),
         plain_ms=median_ms(lambda: flash_attention_ref(q, k, v, window=window),
                            3, warmup=1),
         bound_ms=b, bound_by=by, flops=flops,
@@ -880,6 +1020,14 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "card": smi})
+    # the main path (kernels_micro) runs flash in fp32; its bf16 kernel, on
+    # the tensor cores, at yi-6b's prefill beside it
+    t = times["flash_attention_yi-6b_bfloat16"]
+    kernels[-1]["bf16"] = {
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "max_abs_err": errs["flash_attention_bf16"],
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "shape")}}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

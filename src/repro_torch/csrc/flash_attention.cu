@@ -22,6 +22,9 @@
 // work is ~1.4e11 flops over ~0.15 GB: 2.05 ms at the 67 TFLOP/s fp32 rate,
 // 0.045 ms of bytes. For bf16 the least time is the tensor-core rate's.
 //
+// This file is the fp32 path, and bf16 at D = 32; bf16 at D in {64, 128,
+// 256} runs on the tensor cores in csrc/flash_attention_sm90.cu.
+//
 // Design, simple first (no tensor cores, no TMA, no wgmma): one block of 256
 // threads per (query tile of 64 rows, query head, batch). The block stages
 // its Q tile once, then walks the band in K/V tiles of BK keys (64, or 32 at
@@ -35,8 +38,8 @@
 // scale (the Pallas kernel's order), masks with NEG_INF = -1e30, and keeps
 // the rows' running max m and sum l in registers, reduced over the 16 lanes
 // of the row group with shuffles. P goes to shared memory (over the K tile,
-// which is no longer read) in fp32 also for bf16 inputs (the Pallas kernel
-// rounds P to v's dtype; both are within the bf16 tolerance), and the
+// which is no longer read) in fp32 also for bf16 inputs (as the Pallas
+// kernel, which casts v to fp32 before P V), and the
 // thread accumulates P V for its 4 rows x D / 16 columns in registers. The
 // output is acc / max(l, 1e-30) in q's dtype. Tiles are taken in reverse
 // order of query position, so the longest causal rows start first. Offsets
@@ -319,12 +322,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       window < 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 32: return launch_d<T, 32>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
-    case 64: return launch_d<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
-    case 128: return launch_d<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
-    case 256: return launch_d<T, 256>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (D == 32)
+    return launch_d<T, 32>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
+  if constexpr (sizeof(T) == 2) {  // bf16 at larger D: flash_attention_sm90.cu
+    return (int)cudaErrorInvalidValue;
+  } else {
+    switch (D) {
+      case 64: return launch_d<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
+      case 128: return launch_d<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
+      case 256: return launch_d<T, 256>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -332,8 +340,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // q, out: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); all contiguous and 16-byte
 // aligned on the caller's current device, in fp32 (f32) or bf16 (bf16);
-// D in {32, 64, 128, 256}. Launches on `stream` and returns
-// cudaGetLastError() after the launch.
+// D in {32, 64, 128, 256} for f32, D = 32 for bf16. Launches on `stream`
+// and returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Sk, int H, int Hkv, int D, int causal,

@@ -36,12 +36,16 @@ SIGNATURES = {
     "stencil5": {"stencil5_f32": (_P, _P, _I64, _I64, _F32, _P)},
     "qv_gate": {"qv_gate_c64": (_P, _I64, _I32, _I32, _P, _P)},
     "paged_attention": {
-        name: (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P)
+        name: (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+               _I32, _I32, _P)
         for name in ("paged_attention_f32", "paged_attention_bf16")},
     "flash_attention": {
         name: (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                _P)
         for name in ("flash_attention_f32", "flash_attention_bf16")},
+    "flash_attention_sm90": {
+        "flash_attention_bf16_sm90": (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                                      _I32, _I32, _I32, _I32, _P)},
 }
 
 

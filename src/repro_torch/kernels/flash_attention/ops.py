@@ -1,5 +1,8 @@
-"""Flash attention forward: CUDA kernel (csrc/flash_attention.cu) on the card,
-plain PyTorch on the CPU."""
+"""Flash attention forward: CUDA kernels on the card, plain PyTorch on the CPU.
+
+bf16 at D in {64, 128, 256} runs the tensor-core kernel
+(csrc/flash_attention_sm90.cu: TMA, wgmma); fp32, and bf16 at D = 32, the
+FMA kernel (csrc/flash_attention.cu)."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +18,14 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 HEAD_DIMS = (32, 64, 128, 256)
+SM90_HEAD_DIMS = (64, 128, 256)  # bf16 on the tensor cores
+
+
+def _entry(dtype: torch.dtype, D: int) -> str:
+    """The C entry point that takes these inputs on the card."""
+    if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS:
+        return "flash_attention_bf16_sm90"
+    return _ENTRY[dtype]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -30,7 +41,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A row with no visible key (only where window > 0, at rows
     i >= Sk + window - 1) differs between the devices: the kernel gives it
-    zeros, the plain version the mean of v over all keys.
+    zeros, the plain version the mean of v over all keys. In bf16 at D >= 64
+    the kernel rounds the probabilities to bf16 before P V (the tensor
+    cores' operand type); the plain version, the FMA kernel and the JAX
+    package's Pallas kernel keep them in fp32.
 
     CPU tensors run :func:`flash_attention_ref`. CUDA tensors must be
     contiguous, 16-byte aligned and on one card; the kernel runs on the
@@ -66,7 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
     with torch.cuda.device(q.device):
-        err = library().fns[_ENTRY[q.dtype]](
+        err = library().fns[_entry(q.dtype, D)](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, H, Hkv, D, int(bool(causal)), int(window),
             stream_of(q))

@@ -1,5 +1,9 @@
 """Paged decode attention: CUDA kernel (csrc/paged_attention.cu) on the card,
-plain PyTorch on the CPU."""
+plain PyTorch on the CPU.
+
+The kernel splits each sequence into chunks of :data:`CHUNK` tokens, one
+block per (sequence, kv head, chunk), and a second pass combines the
+chunks' partial softmax states; :func:`split_plan` sizes both."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +18,17 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _ENTRY = {torch.float32: "paged_attention_f32",
           torch.bfloat16: "paged_attention_bf16"}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+CHUNK = 64  # tokens per pass-1 block; csrc/paged_attention.cu's CHUNK
+
+
+def split_plan(B: int, H: int, D: int, PS: int, NP: int) -> tuple:
+    """(splits, scratch numel) of the kernel for these shapes: S chunks of
+    CHUNK tokens cover the NP * PS positions a page table can address, and
+    the scratch holds each (sequence, query head, chunk)'s fp32 partial
+    ``acc[D]`` and ``(m, l)``. Host arithmetic only: no device sync."""
+    S = -(-(NP * PS) // CHUNK)
+    return S, B * H * S * (D + 2)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -32,9 +47,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     plain version the mean of v. Positions past NP * PS are not read.
 
     CPU tensors run :func:`paged_attention_ref`. CUDA tensors must be
-    contiguous and on one card; the kernel runs on the current stream,
-    without synchronizing, and ``paged_attention.launches`` counts the
-    launch. Page ids are not checked on the card: each must lie in [0, P)."""
+    contiguous and on one card, the pools 16-byte aligned, D one of
+    :data:`HEAD_DIMS`; the kernel's two passes run on the current stream,
+    without synchronizing, over scratch from one ``torch.empty``, and
+    ``paged_attention.launches`` counts the call. Page ids are not checked
+    on the card: each must lie in [0, P)."""
     if q.dim() != 3 or k_pool.dim() != 4:
         raise ValueError(f"q must be (B,H,D) and the pools (P,PS,Hkv,D), got "
                          f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
@@ -61,12 +78,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         require_cuda_tensor(t, name, dt, nd)
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim D={D} is not one of {HEAD_DIMS}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the pools must start on a 16-byte boundary")
     out = torch.empty_like(q)
+    S, numel = split_plan(B, H, D, PS, NP)
+    part = torch.empty(numel, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = library().fns[_ENTRY[q.dtype]](
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, Hkv, D, PS, NP, stream_of(q))
+            part.data_ptr(), B, H, Hkv, D, PS, NP, S, stream_of(q))
     check_launch("paged_attention", err)
     paged_attention.launches += 1
     return out
