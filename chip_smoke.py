@@ -7,17 +7,22 @@ Needs one CUDA card and ``nvcc``. It builds the CUDA kernels from
 ``src/repro_torch/csrc`` (and fails unless the bf16 flash kernels hold
 ``HGMMA`` tensor-core instructions and spill nothing), holds each against its
 plain PyTorch version on the card (flash attention in bf16 on the tensor
-cores, paged attention also at its chunk boundaries), drives the port's
-three main paths through the kernels, counting each kernel's launches: the six paper apps at full size (hotspot, srad and qiskit
-through their kernels; pathfinder, needle and bfs in plain torch), paged-KV
-serving of full-width yi-6b (8 requests through ``ServeEngine``), and the
-paper-figure benchmark harness (``repro_torch.bench.run``, whose
-``kernels_micro`` launches every kernel, flash attention among them). It
-holds the apps' card results against the CPU on small shared inputs and
-their charges against the parity fixture, the paged engine's tokens against
-the dense decode path at full width and against the CPU on reduced yi-6b,
-the harness's figure rows against the same modules on the CPU, times each
-kernel at its main-path shape, and prints:
+cores, paged attention also at its chunk boundaries and at the MoE archs'
+decode shapes), drives the port's main paths through the kernels, counting
+each kernel's launches: the six paper apps at full size (hotspot, srad and
+qiskit through their kernels; pathfinder, needle and bfs in plain torch),
+paged-KV serving of full-width yi-6b and of full-width olmoe-1b-7b (8
+requests each through ``ServeEngine``), the traffic harness (the burst
+preset over the reduced configs, and a node loss on the two-superchip
+cluster pool), and the benchmark harness (``repro_torch.bench.run``, whose
+``kernels_micro`` launches every kernel, flash attention among them, with
+the serving benchmarks at their smoke sizes). It holds the apps' card
+results against the CPU on small shared inputs and their charges against
+the parity fixture, the paged engine's tokens against the dense decode path
+at full width (yi-6b and olmoe-1b-7b) and against the CPU on reduced yi-6b,
+the traffic records and tokens against the CPU and the node-loss tokens
+against the fault-free run, the harness's rows against the same modules on
+the CPU, times each kernel at its main-path shape, and prints:
 
 * one JSON line per phase;
 * ``{"kernels": [...]}``: each kernel's launches on the main path, largest
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +88,10 @@ PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # each of 1, C - 1, C, C + 1 and NP * PS tokens (C = 64 tokens a chunk)
 PAGED_SPLIT = (5, 32, 4, 128, 1025, 16, 128)
 PAGED_MIN_BLOCKS = 132  # pass 1 at the decode shape fills the H100's SMs
+# the MoE archs' decode shapes over the same pool: olmoe-1b-7b (MHA, 16 heads
+# over 16, a group of 1, D 128) and granite-moe-3b-a800m (24 over 8, D 64)
+PAGED_MOE = {"olmoe-1b-7b": (8, 16, 16, 128, 1025, 16, 128),
+             "granite-moe-3b-a800m": (8, 24, 8, 64, 1025, 16, 128)}
 # flash attention: the 16 cases of tests/test_kernels.py as
 # (B, Sq, Sk, H, Hkv, D) x dtype x window, causal; Sq != Sk both ways; the
 # non-causal cases of tests/test_torch_flash_attention.py as
@@ -109,10 +119,32 @@ SERVE = dict(arch="yi-6b", max_seqs=8, max_len=2048, page_size=16,
              prefill_chunk=128, requests=8, prompt_lens=(200, 1000),
              new_tokens=32)
 DENSE_CHECK = dict(prompt_len=64, new_tokens=8, max_len=128)
+# the MoE serving main path: full-width olmoe-1b-7b (16 layers, d 2048, 64
+# experts of d_ff 1024, top-8), fp32, random weights from a seed, under the
+# same engine settings and prompts as yi-6b's
+SERVE_MOE = dict(SERVE, arch="olmoe-1b-7b")
+# one prompt that fits one prefill chunk: the paged engine and model.prefill
+# then route the same T tokens, so their capacity drops are the same
+MOE_DENSE_CHECK = dict(prompt_len=100, new_tokens=8, max_len=128)
+# the traffic harness: the burst preset (preempt/swap churn) over the
+# reduced configs, on the card and on the CPU with the same weights; then a
+# node loss under cluster_system on gh200_x2 (tests/test_fault_serve.py's
+# micro schedule) against its fault-free run on the card
+TRAFFIC = dict(scenario="burst", seed=0, weights_seed=4)
+FAULT = dict(seed=3, policy="cluster_system", hw="gh200_x2", tp=2,
+             node_loss=[(4, 1)])
+# a MoE token may also differ where a routing decision it depends on was
+# within this much router probability of the next expert (a near-tie)
+ROUTE_GAP_TOL = 1e-5
+# the serving benchmarks run in the bench phase at their smoke sizes
+BENCH_SMOKE = {"LM_SERVE_SMOKE": "1", "FAULT_SMOKE": "1", "CLUSTER_SMOKE": "1"}
+BENCH_BY_NAME = ["repro_torch.bench.fault_serve",
+                 "repro_torch.bench.cluster_scaling"]
 # a token of the paged engine may differ from the dense path's only where
 # the dense path's top-2 logit margin is below this share of max |logit|
 MARGIN_RTOL = 1e-4
 L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
+WALL_FIELD = re.compile(r";?wall_s=[0-9.]+")  # host seconds in a CSV row
 
 PARITY_FIXTURE = ROOT / "tests" / "fixtures" / "parity.json"
 
@@ -356,10 +388,39 @@ def phase_kernels_vs_plain() -> dict:
                              max_abs_err=err, tol=tol))
             del args, out
     rows += check_flash(gen, errs)
-    # its own generator: the flash checks draw what they drew before it
+    # their own generators: the flash checks draw what they drew before
     rows += check_paged_splits(torch.Generator("cuda").manual_seed(2))
+    rows += check_paged_moe(torch.Generator("cuda").manual_seed(3), errs)
     emit("kernel_vs_plain", checks=rows)
     return errs
+
+
+def check_paged_moe(gen, errs) -> list:
+    """paged_attention at the MoE archs' decode shapes, engine-like, fp32
+    and bf16; ``errs["paged_attention"]`` also takes olmoe's fp32 error."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_ref,
+    )
+
+    rows = []
+    for arch, shape in PAGED_MOE.items():
+        for dtype, tol in PAGED_TOL.items():
+            args = paged_inputs(shape, dtype, gen, engine_like=True)
+            out = paged_attention(*args)
+            torch.cuda.synchronize()
+            err = float((out.float() - paged_attention_ref(*args).float())
+                        .abs().max())
+            check(err <= tol, f"paged_attention {arch} {shape} {dtype} "
+                  f"err {err}")
+            if arch == SERVE_MOE["arch"] and dtype == torch.float32:
+                errs["paged_attention"] = max(errs["paged_attention"], err)
+            rows.append(dict(kernel="paged_attention", case=arch,
+                             shape=list(shape), dtype=str(dtype),
+                             lengths=args[4].tolist(), max_abs_err=err,
+                             tol=tol))
+            del args, out
+    return rows
 
 
 def check_paged_splits(gen) -> list:
@@ -592,51 +653,42 @@ def phase_parity() -> None:
     emit("parity", configs=keys, bit_identical=True)
 
 
-def phase_serve():
-    """The serving main path: full-width yi-6b with random fp32 weights made
-    on the card, 8 requests through ServeEngine over a KV pool under the
-    unified-memory runtime, every launch counter set to 0 just before the
-    run and read just after. Returns the launches, the model (for the dense
-    check) and the last decode batch's paged_attention inputs (for timing)."""
+def run_serve(cfg, model, settings, time_ffn: bool = False):
+    """Requests through ServeEngine over a KV pool under the unified-memory
+    runtime, every launch counter set to 0 just before the run and read just
+    after. Times prefill chunks and decode batches apart (each ends
+    synchronized), each paged_attention launch with CUDA events and, with
+    ``time_ffn``, each block's ffn in the decode batches. Returns the phase's
+    row, the launches and the last paged_attention call's inputs."""
     import dataclasses
 
     import repro_torch.serve.engine as engine_mod
-    from repro_torch.configs import get_config
     from repro_torch.core import UnifiedMemory
-    from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(SERVE["arch"])
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator("cuda").manual_seed(0),
-                        device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     um = UnifiedMemory()  # the charge model's default hardware, GRACE_HOPPER
-    eng = ServeEngine(cfg, model, max_seqs=SERVE["max_seqs"],
-                      max_len=SERVE["max_len"], page_size=SERVE["page_size"],
-                      prefill_chunk=SERVE["prefill_chunk"], um=um,
+    eng = ServeEngine(cfg, model, max_seqs=settings["max_seqs"],
+                      max_len=settings["max_len"],
+                      page_size=settings["page_size"],
+                      prefill_chunk=settings["prefill_chunk"], um=um,
                       device="cuda")
     rng = np.random.default_rng(0)
-    lo, hi = SERVE["prompt_lens"]
+    lo, hi = settings["prompt_lens"]
     prompts = [rng.integers(2, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
-               for _ in range(SERVE["requests"])]
-    rids = [eng.add_request(p, SERVE["new_tokens"]) for p in prompts]
+               for _ in range(settings["requests"])]
+    rids = [eng.add_request(p, settings["new_tokens"]) for p in prompts]
 
-    # time prefill chunks and decode batches apart (each ends synchronized),
-    # time each paged_attention launch on the card with CUDA events, and
-    # keep the last call's inputs
     spent = {"prefill": 0.0, "decode": 0.0}
-    last, events = {}, []
+    last, events, ffn_events, in_decode = {}, [], [], [False]
 
     def timed(fn, key):
         def run(*a):
+            in_decode[0] = key == "decode"
             t = time.perf_counter()
             fn(*a)
             torch.cuda.synchronize()
             spent[key] += time.perf_counter() - t
+            in_decode[0] = False
         return run
 
     def recording(*args):
@@ -649,8 +701,24 @@ def phase_serve():
         events.append(ev)
         return out
 
+    def ffn_timed(fwd):
+        def run(x, policy):
+            if not in_decode[0]:
+                return fwd(x, policy)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            y = fwd(x, policy)
+            ev[1].record()
+            ffn_events.append(ev)
+            return y
+        return run
+
     eng._prefill_chunk_run = timed(eng._prefill_chunk_run, "prefill")
     eng._decode_batch = timed(eng._decode_batch, "decode")
+    if time_ffn:
+        for blk in model.layers:
+            blk.ffn.forward = ffn_timed(blk.ffn.forward)
     real = engine_mod.paged_attention
     engine_mod.paged_attention = recording
     try:
@@ -662,6 +730,12 @@ def phase_serve():
         launches = {k: fn.launches for k, fn in counters.items()}
     finally:
         engine_mod.paged_attention = real
+        # the wrappers hold the engine, and the engine holds the model: drop
+        # the cycle, so the model's memory goes when the caller drops it
+        del eng._prefill_chunk_run, eng._decode_batch
+        if time_ffn:
+            for blk in model.layers:
+                del blk.ffn.forward
     st = eng.stats
     check(st.decode_batches > 0 and launches["paged_attention"]
           == st.decode_batches * cfg.num_layers,
@@ -669,30 +743,82 @@ def phase_serve():
           f"for {st.decode_batches} decode batches x {cfg.num_layers} layers")
     for rid in rids:
         check(eng.requests[rid].done
-              and len(out[rid]) == SERVE["new_tokens"],
+              and len(out[rid]) == settings["new_tokens"],
               f"request {rid} ended with {len(out[rid])} tokens")
     prefill_tokens = int(sum(len(p) for p in prompts))
     kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    decode_ms = 1e3 * spent["decode"]
     rep = um.report()
-    emit("serve", arch=cfg.name, params=cfg.param_count(), dtype="float32",
-         config={k: v for k, v in SERVE.items() if k != "arch"},
-         prompt_lens=[len(p) for p in prompts], init_s=init_s, wall_s=wall,
-         prefill_tokens=prefill_tokens, prefill_s=spent["prefill"],
-         prefill_tok_per_s=prefill_tokens / spent["prefill"],
-         decode_tokens=st.decode_tokens, decode_s=spent["decode"],
-         decode_tok_per_s=st.decode_tokens / spent["decode"],
-         # each sequence of a decode batch gets one token from it
-         per_token_latency_ms=1e3 * spent["decode"] / st.decode_batches,
-         paged_attention_ms=kernel_ms,
-         paged_attention_share_of_decode=kernel_ms / (1e3 * spent["decode"]),
-         peak_device_bytes=torch.cuda.max_memory_allocated(),
-         launches=launches, stats=dataclasses.asdict(st),
-         umem_modeled=dict(hardware="GRACE_HOPPER", clock_s=um.clock,
-                           traffic_total=rep["traffic_total"],
-                           remote_access_share=rep["remote_access_share"]),
-         tokens={rid: out[rid] for rid in rids})
+    row = dict(
+        arch=cfg.name, params=cfg.param_count(), dtype="float32",
+        config={k: v for k, v in settings.items() if k != "arch"},
+        prompt_lens=[len(p) for p in prompts], wall_s=wall,
+        prefill_tokens=prefill_tokens, prefill_s=spent["prefill"],
+        prefill_tok_per_s=prefill_tokens / spent["prefill"],
+        decode_tokens=st.decode_tokens, decode_s=spent["decode"],
+        decode_tok_per_s=st.decode_tokens / spent["decode"],
+        # each sequence of a decode batch gets one token from it
+        per_token_latency_ms=decode_ms / st.decode_batches,
+        paged_attention_ms=kernel_ms,
+        paged_attention_share_of_decode=kernel_ms / decode_ms,
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        launches=launches, stats=dataclasses.asdict(st),
+        umem_modeled=dict(hardware="GRACE_HOPPER", clock_s=um.clock,
+                          traffic_total=rep["traffic_total"],
+                          remote_access_share=rep["remote_access_share"]),
+        tokens={rid: out[rid] for rid in rids})
+    if time_ffn:
+        ffn_ms = sum(a.elapsed_time(b) for a, b in ffn_events)
+        row.update(decode_ffn_ms=ffn_ms, decode_ffn_calls=len(ffn_events),
+                   decode_ffn_share_of_decode=ffn_ms / decode_ms)
     del eng, um
-    return launches, model, last["args"]
+    return row, launches, last["args"]
+
+
+def phase_serve():
+    """The serving main path: full-width yi-6b with random fp32 weights made
+    on the card, 8 requests. Returns the launches, the model (for the dense
+    check) and the last decode batch's paged_attention inputs (for timing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    row, launches, args = run_serve(cfg, model, SERVE)
+    emit("serve", init_s=init_s, **row)
+    return launches, model, args
+
+
+def phase_serve_moe():
+    """The MoE serving main path: full-width olmoe-1b-7b with random fp32
+    weights made on the card, the same 8 requests' settings, each MoE
+    block's device time in the decode batches measured with CUDA events.
+    Returns the launches and the model (for the dense check)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.moe import MoE
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cfg = get_config(SERVE_MOE["arch"])
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(all(isinstance(blk.ffn, MoE) for blk in model.layers),
+          f"{cfg.name} built without MoE blocks")
+    row, launches, _ = run_serve(cfg, model, SERVE_MOE, time_ffn=True)
+    emit("serve_moe", init_s=init_s, num_experts=cfg.num_experts,
+         top_k=cfg.top_k, device_bytes_before_init=before, **row)
+    return launches, model
 
 
 def phase_dense_check(model) -> None:
@@ -738,6 +864,58 @@ def phase_dense_check(model) -> None:
               f"{first} with top-2 margin {row['margin']}")
 
 
+def phase_moe_dense_check(model) -> None:
+    """One request whose prompt fits one prefill chunk, at full width,
+    through the paged engine and through model.prefill + decode_step: both
+    route the prompt's T tokens together and then one token at a time, so
+    their capacity drops are the same. The greedy tokens must agree, or
+    differ first where the dense path's top-2 logit margin is within
+    rounding."""
+    from repro_torch.models import init_cache
+    from repro_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    n, new, max_len = (MOE_DENSE_CHECK[k] for k in
+                       ("prompt_len", "new_tokens", "max_len"))
+    check(n <= SERVE_MOE["prefill_chunk"], "the prompt must fit one chunk")
+    prompt = np.random.default_rng(2).integers(2, cfg.vocab_size, n)
+    eng = ServeEngine(cfg, model, max_seqs=1, max_len=max_len, page_size=16,
+                      prefill_chunk=SERVE_MOE["prefill_chunk"], device="cuda")
+    rid = eng.add_request(prompt, new)
+    paged = eng.run_to_completion()[rid]
+    check(eng.stats.prefill_chunks == 1, "the prompt took more than a chunk")
+    del eng
+    lg, kv = model.prefill(torch.as_tensor(prompt, device="cuda")[None])
+    cache = init_cache(cfg, 1, max_len, dtype=torch.float32, device="cuda")
+    for c, layer in zip(cache, kv):
+        c["k"][:, :n] = layer["k"]
+        c["v"][:, :n] = layer["v"]
+    del kv
+    dense, margins = [], []
+    for i in range(new):
+        if i:
+            lg, cache = model.decode_step(
+                torch.tensor([[dense[-1]]], dtype=torch.int32, device="cuda"),
+                torch.tensor([n + i - 1], dtype=torch.int32, device="cuda"),
+                cache)
+        top = torch.topk(lg[0, -1], 2).values
+        dense.append(int(torch.argmax(lg[0, -1])))
+        margins.append((float(top[0] - top[1]), float(lg[0, -1].abs().max())))
+    del cache
+    first = next((i for i, (a, b) in enumerate(zip(paged, dense)) if a != b),
+                 None)
+    row = dict(arch=cfg.name, prompt_len=n, paged=paged, dense=dense,
+               first_difference=first, top2_margins=[m for m, _ in margins])
+    if first is not None:
+        margin, scale = margins[first]
+        row.update(margin=margin, margin_tol=MARGIN_RTOL * scale)
+    emit("moe_dense_check", **row)
+    if first is not None:
+        check(row["margin"] < row["margin_tol"],
+              f"paged token {paged[first]} != dense {dense[first]} at "
+              f"{first} with top-2 margin {row['margin']}")
+
+
 def phase_serve_card_vs_cpu() -> None:
     """Reduced yi-6b with the same weights (a numpy tree from a seed) on the
     card and on the CPU: the same schedule gives the same greedy tokens."""
@@ -764,6 +942,203 @@ def phase_serve_card_vs_cpu() -> None:
          tokens_equal=True, tokens=toks["cuda"])
 
 
+def record_margins(sim) -> tuple:
+    """Wrap every engine of ``sim`` so that it records, for the i-th token
+    of each request, (top-2 logit margin, max |logit|, least router gap):
+    the router gap is the distance between a routing's k-th and (k+1)-th
+    expert probability in the call that produced the token (inf for dense
+    archs). Also the least router gap of each request's prefill chunks.
+    Returns (per-token dict keyed (arch, rid, i), prefill dict keyed (arch,
+    rid), undo)."""
+    import repro_torch.models.moe as moe_mod
+
+    tokens, prefill, gaps, logits = {}, {}, [], []
+    real_route = moe_mod._route
+
+    def route(cfg, p, xt, E):
+        probs, gate_vals, idx = real_route(cfg, p, xt, E)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        gaps.append(top[:, -2] - top[:, -1])
+        return probs, gate_vals, idx
+
+    def margins(lg):
+        top = torch.topk(lg, 2, dim=-1).values
+        return ((top[:, 0] - top[:, 1]).tolist(),
+                lg.abs().amax(dim=-1).tolist())
+
+    def wrap(arch, eng):
+        model = eng.params
+        real_logits = model.logits_out
+        real_pre, real_dec = eng._prefill_chunk_run, eng._decode_batch
+
+        def logits_out(x):
+            lg = real_logits(x)
+            logits.append(lg[:, -1])
+            return lg
+
+        def pre(req, chunk):
+            gaps.clear()
+            logits.clear()
+            i = len(req.generated)
+            real_pre(req, chunk)
+            g = float(torch.cat(gaps).min()) if gaps else math.inf
+            key = (arch, req.rid)
+            prefill[key] = min(prefill.get(key, math.inf), g)
+            if logits:
+                (m,), (sc,) = margins(logits[-1])
+                tokens[(arch, req.rid, i)] = (m, sc, g)
+
+        def dec(reqs):
+            gaps.clear()
+            logits.clear()
+            at = [(r.rid, len(r.generated)) for r in reqs]
+            real_dec(reqs)
+            g = (torch.stack(gaps).amin(dim=0).tolist() if gaps
+                 else [math.inf] * len(reqs))
+            ms, scs = margins(logits[-1])
+            for (rid, i), m, sc, gj in zip(at, ms, scs, g):
+                tokens[(arch, rid, i)] = (m, sc, gj)
+
+        model.logits_out = logits_out
+        eng._prefill_chunk_run, eng._decode_batch = pre, dec
+        return model
+
+    models = [wrap(arch, eng) for arch, eng in sim.engines.items()]
+    moe_mod._route = route
+
+    def undo():
+        moe_mod._route = real_route
+        for model in models:
+            del model.logits_out
+
+    return tokens, prefill, undo
+
+
+def phase_traffic() -> dict:
+    """The traffic harness on the card: the burst preset over the reduced
+    configs with the same weights (numpy trees made on the CPU, loaded on
+    each device) on the card and on the CPU, whose records must be equal
+    field for field and tokens equal but where a token's logit margin or a
+    routing it depends on is a near-tie; then a node loss on gh200_x2 whose
+    tokens must equal the fault-free run's on the card. Every launch counter
+    is set to 0 just before the card's runs and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import load_jax_params, numpy_params
+    from repro_torch.runtime import FaultPlan
+    from repro_torch.serve import (
+        ArrivalProcess,
+        LengthDist,
+        Scenario,
+        TenantSpec,
+        TrafficSim,
+        get_scenario,
+    )
+
+    sc = get_scenario(TRAFFIC["scenario"])
+    trees = {}
+    for arch in sorted({t.arch for t in sc.tenants}):
+        cfg = get_config(arch).reduced()
+        trees[arch] = (cfg, numpy_params(cfg, TRAFFIC["weights_seed"]))
+
+    def sim(device):
+        models = {a: (cfg, load_jax_params(cfg, tree, device))
+                  for a, (cfg, tree) in trees.items()}
+        return TrafficSim(sc, policy="system", seed=TRAFFIC["seed"],
+                          models=models, device=device)
+
+    micro = ArchConfig(name="micro", family="dense", source="test",
+                       num_layers=1, d_model=32, num_heads=2, num_kv_heads=2,
+                       head_dim=16, d_ff=64, vocab_size=64)
+    micro_models = {"micro": (micro, load_jax_params(
+        micro, numpy_params(micro, 0), "cuda"))}
+    fault_sc = Scenario(
+        name="micro",
+        tenants=tuple(TenantSpec(
+            name=f"t{i}", arch="micro", num_requests=5,
+            arrival=ArrivalProcess("poisson", rate=2e5),
+            prompt=LengthDist("lognormal", lo=4, hi=24, mean=10.0),
+            output=LengthDist("lognormal", lo=1, hi=8, mean=4.0))
+            for i in range(2)),
+        page_size=4, max_seqs=4, max_len=48, prefill_chunk=12)
+
+    def fault_run(plan):
+        return TrafficSim(fault_sc, policy=FAULT["policy"], hw=FAULT["hw"],
+                          seed=FAULT["seed"], models=micro_models,
+                          tp=FAULT["tp"], fault_plan=plan,
+                          device="cuda").run()
+
+    card_sim = sim("cuda")
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    card = card_sim.run()
+    clean = fault_run(None)
+    faulted = fault_run(FaultPlan.node_loss(FAULT["node_loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(launches["paged_attention"] > 0, "the traffic runs never launched "
+          "paged_attention")
+    del card_sim
+
+    cpu_sim = sim("cpu")
+    rec, prefill, undo = record_margins(cpu_sim)
+    try:
+        cpu = cpu_sim.run()
+    finally:
+        undo()
+    check([dataclasses.asdict(r) for r in card.records]
+          == [dataclasses.asdict(r) for r in cpu.records],
+          "traffic records differ between card and cpu")
+    for arch, pe in cpu.per_engine.items():
+        check(card.per_engine[arch]["clock"] == pe["clock"]
+              and card.per_engine[arch]["stats"] == pe["stats"],
+              f"{arch}: clock or stats differ between card and cpu")
+    flips = []
+    for key, want in cpu.tokens.items():
+        got = card.tokens[key]
+        check(len(got) == len(want), f"{key}: {len(got)} tokens on the card, "
+              f"{len(want)} on the cpu")
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     None)
+        if first is None:
+            continue
+        arch, rid = key.split("/")
+        margin, scale, _ = rec[(arch, int(rid), first)]
+        gap = min([prefill.get((arch, int(rid)), math.inf)]
+                  + [rec[(arch, int(rid), i)][2] for i in range(first + 1)])
+        flips.append(dict(request=key, index=first, card=got[first],
+                          cpu=want[first], logit_margin=margin,
+                          margin_tol=MARGIN_RTOL * scale, router_gap=gap,
+                          router_gap_tol=ROUTE_GAP_TOL))
+    for f in flips:
+        print(f"chip_smoke: traffic token flip {json.dumps(f)}", flush=True)
+        check(f["logit_margin"] < f["margin_tol"]
+              or f["router_gap"] < f["router_gap_tol"],
+              f"traffic token differs without a near-tie: {f}")
+
+    stats = faulted.per_engine["micro"]["stats"]
+    check(faulted.tokens == clean.tokens, "node-loss tokens differ from the "
+          "fault-free run on the card")
+    check(stats["node_losses"] == 1 and stats["replayed_tokens"] > 0,
+          f"the node loss replayed nothing: {stats}")
+    m = card.metrics
+    emit("traffic", scenario=sc.name, policy="system", archs=sorted(trees),
+         wall_s=wall, requests=m["n"], completed=m["completed"],
+         tokens=m["tokens"], goodput_tok_s_modeled=m["goodput_tok_s"],
+         preempted=sum(pe["stats"]["preempted"]
+                       for pe in card.per_engine.values()),
+         records_equal_cpu=True, token_flips=flips,
+         fault=dict(FAULT, tokens_equal_fault_free=True,
+                    node_losses=stats["node_losses"],
+                    recovered_requests=stats["recovered_requests"],
+                    replayed_tokens=stats["replayed_tokens"]),
+         launches=launches)
+    return launches
+
+
 def run_harness(argv) -> tuple:
     """``python -m repro_torch.bench.run`` in this process: its exit code
     and its CSV rows as {name: (us_per_call, derived)}, in order."""
@@ -780,22 +1155,31 @@ def run_harness(argv) -> tuple:
           f"harness {argv} printed no CSV header")
     rows = {}
     for ln in lines[1:]:
+        if ln.startswith("#"):  # a module's note, e.g. a skipped cell
+            continue
         name, us, derived = ln.split(",", 2)
-        rows[name] = (us, derived)
+        rows[name] = (us, WALL_FIELD.sub("", derived))
     return rc, rows
 
 
 def phase_bench() -> dict:
     """The harness's main path: every module of repro_torch.bench.run on the
-    card, every launch counter set to 0 just before and read just after;
-    kernels_micro launches each kernel. The figure modules print modeled
-    charges, so their rows must equal the same modules' rows on the CPU."""
+    card, and the serving benchmarks it runs by name, every launch counter
+    set to 0 just before and read just after; kernels_micro launches each
+    kernel. The figure and serving modules print modeled charges and counts,
+    so their rows (but ``wall_s``) must equal the same modules' rows on the
+    CPU. Their JSON snapshots go to build/, never to the repo root."""
+    import os
+
     from repro_torch.bench.run import MODULES
 
     torch.cuda.empty_cache()
+    json_dir = ROOT / "build" / "chip_smoke_bench_json"
+    os.environ.update(BENCH_SMOKE)
     counters = zero_counters()
     t0 = time.perf_counter()
-    rc, card = run_harness([])
+    rc, card = run_harness(["--json", str(json_dir / "card")] + MODULES
+                           + BENCH_BY_NAME)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -805,15 +1189,24 @@ def phase_bench() -> dict:
     micro = {k: v for k, v in card.items() if k.startswith("kernel/")}
     check(len(micro) == 4, f"kernels_micro printed {sorted(micro)}")
     figures = {k: v for k, v in card.items() if not k.startswith("kernel/")}
-    rc, cpu = run_harness(["--device", "cpu"]
-                          + [m for m in MODULES if "kernels_micro" not in m])
+    rc, cpu = run_harness(["--device", "cpu", "--json", str(json_dir / "cpu")]
+                          + [m for m in MODULES if "kernels_micro" not in m]
+                          + BENCH_BY_NAME)
     check(rc == 0, f"repro_torch.bench.run --device cpu exited {rc}")
     check(list(figures) == list(cpu), "the card's figure rows differ in "
           "name or order from the CPU's")
     differ = [k for k in figures if figures[k] != cpu[k]]
     check(not differ, f"figure rows differ between card and cpu: {differ}")
-    emit("bench", modules=MODULES, wall_s=wall, figure_rows=len(figures),
-         figure_rows_equal_cpu=True, launches=launches,
+    serving = [k for k in figures
+               if k.split("/")[0] in ("lm_serve", "fault", "cluster")]
+    check(serving, "the serving benchmarks printed no rows")
+    snapshots = sorted(p.name for p in (json_dir / "card").glob("*.json"))
+    check(snapshots == ["BENCH_cluster.json", "BENCH_fault.json",
+                        "BENCH_lmserve.json"],
+          f"the serving benchmarks wrote {snapshots}")
+    emit("bench", modules=MODULES + BENCH_BY_NAME, env=BENCH_SMOKE,
+         wall_s=wall, figure_rows=len(figures), serving_rows=len(serving),
+         rows_equal_cpu=True, json=snapshots, launches=launches,
          kernels_micro_us_on_card={k: (float(us), d)
                                    for k, (us, d) in micro.items()})
     return launches
@@ -962,6 +1355,11 @@ def phase_timing(paged_args) -> dict:
     out["paged_attention"] = paged_timing(paged_args)
     out["paged_attention_decode_shape"] = paged_timing(paged_inputs(
         PAGED_MAIN, torch.float32, gen, engine_like=True))
+    # olmoe's decode shape (MHA, a group of 1) from its own generator, so
+    # the flash inputs below are drawn as before
+    out["paged_attention_olmoe_decode_shape"] = paged_timing(paged_inputs(
+        PAGED_MOE[SERVE_MOE["arch"]], torch.float32,
+        torch.Generator("cuda").manual_seed(4), engine_like=True))
     del scratch
     torch.cuda.empty_cache()
 
@@ -989,7 +1387,14 @@ def main() -> int:
     launches["paged_attention"] = serve_launches["paged_attention"]
     phase_dense_check(model)
     del model
+    torch.cuda.empty_cache()
+    moe_launches, model = phase_serve_moe()
+    launches["paged_attention"] += moe_launches["paged_attention"]
+    phase_moe_dense_check(model)
+    del model
+    torch.cuda.empty_cache()
     phase_serve_card_vs_cpu()
+    launches["paged_attention"] += phase_traffic()["paged_attention"]
     launches["flash_attention"] = phase_bench()["flash_attention"]
     times = phase_timing(paged_args)
     del paged_args
@@ -1020,6 +1425,12 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "card": smi})
+    # paged attention at olmoe's decode shape (MHA) beside yi-6b's last batch
+    t = times["paged_attention_olmoe_decode_shape"]
+    paged = next(k for k in kernels if k["name"] == "paged_attention")
+    paged["olmoe_decode_shape"] = {
+        k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "shape", "lengths")}
     # the main path (kernels_micro) runs flash in fp32; its bf16 kernel, on
     # the tensor cores, at yi-6b's prefill beside it
     t = times["flash_attention_yi-6b_bfloat16"]

@@ -1,11 +1,18 @@
 """Benchmark harness of the port: one module per paper figure plus
-``kernels_micro``. CSV to stdout.
+``kernels_micro`` and ``lm_serve_paged``. CSV to stdout.
 
     python -m repro_torch.bench.run [--device cpu] [--jobs N]
-        [--policy NAME] [--hw NAME] [modules]
+        [--policy NAME] [--hw NAME] [--json [DIR]] [modules]
 
 Exits non-zero if ANY module fails. With no module named
-(``repro_torch.bench.fig3_overview``, ...), all of ``MODULES`` run.
+(``repro_torch.bench.fig3_overview``, ...), all of ``MODULES`` run;
+``repro_torch.bench.fault_serve`` and ``repro_torch.bench.cluster_scaling``
+run by name.
+
+Modules that write a ``BENCH_<module>.json`` snapshot write it to
+``build/bench_json/`` (``repro_torch.bench.common.json_dir``);
+``--json DIR`` sends it to DIR instead (a bare ``--json`` keeps the
+default, so the committed snapshots at the repo root are never touched).
 
 ``--device`` is where the apps and kernels run: the CUDA card by default,
 ``cpu`` for the plain versions (the figure modules' numbers are modeled
@@ -21,6 +28,7 @@ import importlib
 import inspect
 import io
 import multiprocessing
+import os
 import sys
 import traceback
 from concurrent.futures import ProcessPoolExecutor
@@ -37,6 +45,7 @@ MODULES = [
     "repro_torch.bench.fig11_oversub",
     "repro_torch.bench.fig1213_prefetch",
     "repro_torch.bench.kernels_micro",
+    "repro_torch.bench.lm_serve_paged",
 ]
 
 
@@ -88,6 +97,12 @@ def main(argv=None) -> int:
         jobs = max(1, int(jobs_s)) if jobs_s is not None else 1
     except ValueError:
         _usage(f"--jobs needs an integer, got {jobs_s!r}")
+    if "--json" in argv:
+        i = argv.index("--json")
+        argv.pop(i)
+        if (i < len(argv) and not argv[i].startswith("repro_torch.")
+                and not argv[i].startswith("-")):
+            os.environ["BENCH_JSON_DIR"] = argv.pop(i)
     if any(a.startswith("-") for a in argv):
         _usage(f"unknown option in {argv}")
     names = argv or MODULES

@@ -95,3 +95,9 @@ register_policy("mi300a_unified", mi300a_unified_policy)
 register_hardware(GRACE_HOPPER.name, GRACE_HOPPER)
 register_hardware(MI300A.name, MI300A)
 register_hardware(TPU_V5E.name, TPU_V5E)
+
+# the cluster subsystem self-registers its hardware models and node-aware
+# policies on import; imported last so register_policy/register_hardware
+# above are already bound (cluster modules import repro.core submodules
+# directly, never attributes of the repro.core package, avoiding a cycle)
+import repro_torch.cluster  # noqa: E402,F401

@@ -4,8 +4,10 @@
 The tree is the JAX ``init_params`` pytree with numpy leaves (in a test:
 ``jax.tree.map(np.asarray, params)``): ``{"layers": [{"norm1": {...},
 "mixer": {...}, "norm2": {...}, "ffn": {...}}, ...], "final_norm": {...},
-"embed": {"w"}, "head": {"w"}}``. Its paths are the module's parameter
-names, so the load is name for name and shape for shape.
+"embed": {"w"}, "head": {"w"}}``; a MoE arch's ``ffn`` is ``{"router",
+"w_gate", "w_up", "w_down"}``, and a tied-embedding arch has no ``head``.
+Its paths are the module's parameter names, so the load is name for name
+and shape for shape.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.cache import kv_head_layout
+from repro_torch.models.moe import num_experts_eff
 from repro_torch.models.transformer import TransformerLM
 
 
@@ -80,6 +83,17 @@ def numpy_params(cfg, seed: int, *, tp: int = 1) -> Dict[str, Any]:
             out = out * (src >= 0).reshape(shape)
         return out.astype(f32)
 
+    def moe_ffn():
+        # the logical experts, then zero pads up to num_experts_eff
+        E0 = cfg.num_experts
+        pad = num_experts_eff(cfg, tp) - E0
+        w = {"router": dense((d, E0), d), "w_gate": dense((E0, d, f), d),
+             "w_up": dense((E0, d, f), d), "w_down": dense((E0, f, d), f)}
+        w["router"] = np.pad(w["router"], ((0, 0), (0, pad)))
+        for k in ("w_gate", "w_up", "w_down"):
+            w[k] = np.pad(w[k], ((0, pad), (0, 0), (0, 0)))
+        return w
+
     layers = []
     for _ in range(cfg.num_layers):
         mixer = {
@@ -94,7 +108,9 @@ def numpy_params(cfg, seed: int, *, tp: int = 1) -> Dict[str, Any]:
                          bv=np.zeros((lay.n_kv_eff, hd), f32))
         if cfg.qk_norm:
             mixer.update(q_norm=np.ones(hd, f32), k_norm=np.ones(hd, f32))
-        if cfg.mlp_act in ("swiglu", "geglu"):
+        if cfg.is_moe:
+            ffn = moe_ffn()
+        elif cfg.mlp_act in ("swiglu", "geglu"):
             ffn = {"w_gate": dense((d, f), d), "w_up": dense((d, f), d),
                    "w_down": dense((f, d), f)}
         else:

@@ -19,11 +19,15 @@ class RunPolicy:
     (:func:`repro_torch.models.attention._blocked_causal`) with
     ``attn_kv_block`` (default: the q block) keys per block. The int8 TP
     all-reduce (``quantize_tp_collectives``) needs a device mesh; it comes
-    with the launch slice of the port and raises until then."""
+    with the launch slice of the port and raises until then. MoE layers
+    route with ``moe_capacity_factor`` through ``moe_impl``: ``"dense"``
+    (GShard dispatch einsums) or ``"sorted"`` (scatter dispatch)."""
 
     attn_q_block: int = 0  # 0 => unblocked attention
     attn_kv_block: int = 0
+    moe_capacity_factor: float = 1.25
     quantize_tp_collectives: bool = False
+    moe_impl: str = "dense"  # dense (GShard einsum) | sorted (scatter)
 
 
 def require_no_mesh_options(policy: RunPolicy) -> None:

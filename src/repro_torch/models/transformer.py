@@ -6,8 +6,10 @@ parameters carry the JAX tree's keys (``layers.<i>.mixer.wq``,
 ``layers.<i>.ffn.w_gate``, ``layers.<i>.norm1.scale``, ``final_norm.scale``,
 ``embed.w``, ``head.w``), so ``models/convert.py`` maps one onto the other
 name for name. ``forward``, ``prefill`` and ``decode_step`` run under
-``torch.inference_mode()``. rglru, rwkv6 and MoE layers come with later
-slices and raise ``NotImplementedError``.
+``torch.inference_mode()``. A MoE arch's ``ffn`` is a
+:class:`~repro_torch.models.moe.MoE` (``ffn.router``, ``ffn.w_gate``, ...).
+rglru and rwkv6 layers come with a later slice and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.cache import kv_head_layout
 from repro_torch.models.layers import MLP, Norm, RunPolicy, dense_init, sinusoidal_table
+from repro_torch.models.moe import MoE
 
 
 class _Weight(nn.Module):
@@ -34,12 +37,13 @@ class _Weight(nn.Module):
 class Block(nn.Module):
     """Pre-norm residual block: x + mixer(norm1(x)), then + ffn(norm2(x))."""
 
-    def __init__(self, cfg, layout, dtype: torch.dtype, device):
+    def __init__(self, cfg, layout, dtype: torch.dtype, device, tp: int = 1):
         super().__init__()
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.mixer = Attention(cfg, layout, dtype, device)
         self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.ffn = MLP(cfg, dtype, device)
+        self.ffn = (MoE(cfg, dtype, device, tp) if cfg.is_moe
+                    else MLP(cfg, dtype, device))
 
     def forward(self, x, policy: RunPolicy, positions):
         mixed, kv = self.mixer(self.norm1(x), policy, positions)
@@ -53,9 +57,6 @@ class Block(nn.Module):
 
 
 def _check_supported(cfg) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with the MoE slice of the port")
     other = sorted(set(cfg.layer_kinds()) - {"attention"})
     if other:
         raise NotImplementedError(
@@ -75,7 +76,8 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.layout = kv_head_layout(cfg, tp)
         self.layers = nn.ModuleList(
-            Block(cfg, self.layout, dtype, device) for _ in range(cfg.num_layers))
+            Block(cfg, self.layout, dtype, device, tp)
+            for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
         if cfg.input_kind == "tokens" or cfg.tie_embeddings:
             self.embed = _Weight((cfg.vocab_size, cfg.d_model), dtype, device)

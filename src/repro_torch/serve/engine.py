@@ -27,7 +27,13 @@ driven by one ``step()`` per engine iteration:
 
 The engine runs on one device: the CUDA card unless the caller passes
 ``device="cpu"``, where the kernel's plain version runs. Attention archs
-only. The scheduler state (page table, lengths, free pages) is numpy, so the
+only, dense or MoE: a MoE block's ``ffn`` routes the prefill chunk's
+tokens (T = chunk) or the decode batch's (T = B) with capacity-bounded
+dispatch, so its drops depend on the batch's composition (recurrent archs
+come with a later slice). ``fault_plan`` (a
+:class:`~repro_torch.runtime.FaultPlan`) and ``tp_plan`` (a
+:class:`~repro_torch.cluster.ClusterTPPlan`) only add modeled charges,
+replays and node pins. The scheduler state (page table, lengths, free pages) is numpy, so the
 charges of the unified-memory runtime match the JAX engine's bit for bit.
 
 **Timing.** :meth:`ServeEngine.now` is the modeled clock (``um.clock`` under

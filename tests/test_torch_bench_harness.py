@@ -54,10 +54,11 @@ def test_kernels_micro_rows_match_jax():
 
 
 def test_modules_are_the_eight_figure_and_kernel_modules():
+    # the eight, then the serving benchmark, as in benchmarks/run.py
     assert [m.rsplit(".", 1)[1] for m in bench_run.MODULES] == [
         "fig3_overview", "fig45_timeline", "fig67_pagesize", "fig89_qiskit",
         "fig10_srad_migration", "fig11_oversub", "fig1213_prefetch",
-        "kernels_micro"]
+        "kernels_micro", "lm_serve_paged"]
     for m in bench_run.MODULES:
         assert "device" in importlib.import_module(m).run.__code__.co_varnames
 

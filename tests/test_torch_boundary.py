@@ -29,7 +29,7 @@ from repro_torch.kernels.qv_gate import apply_two_qubit_gate
 from repro_torch.kernels.stencil5 import stencil5
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import init_params
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import ServeEngine, TrafficSim, get_scenario
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -51,7 +51,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.qv_gate, repro_torch.configs, "
             "repro_torch.models, repro_torch.serve, "
             "repro_torch.kernels.paged_attention, repro_torch.launch.serve, "
-            "repro_torch.kernels.flash_attention, repro_torch.bench.run; "
+            "repro_torch.kernels.flash_attention, repro_torch.bench.run, "
+            "repro_torch.runtime, repro_torch.cluster, "
+            "repro_torch.bench.fault_serve, repro_torch.bench.cluster_scaling; "
             "[__import__(m) for m in repro_torch.bench.run.MODULES]; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,6 +64,9 @@ def test_import_leaves_jax_and_repro_out():
     assert "repro_torch.serve.engine" in mods
     assert "repro_torch.apps.bfs" in mods
     assert "repro_torch.bench.kernels_micro" in mods
+    assert "repro_torch.serve.traffic" in mods
+    assert "repro_torch.models.moe" in mods
+    assert "repro_torch.cluster.policy" in mods
     assert [m for m in mods if _banned(m)] == []
 
 
@@ -98,7 +103,38 @@ def test_serve_entry_points_default_to_the_card(entry, monkeypatch):
         entry(get_config("yi-6b").reduced())
 
 
-@pytest.mark.parametrize("module", BENCH_MODULES)
+def _micro_sim(**kw):
+    """A TrafficSim of the steady preset served by one micro model on the
+    CPU, under the cluster pool with TP over two superchips."""
+    from repro_torch.configs.base import ArchConfig
+
+    cfg = ArchConfig(name="micro", family="dense", source="test",
+                     num_layers=1, d_model=32, num_heads=2, num_kv_heads=2,
+                     head_dim=16, d_ff=64, vocab_size=64)
+    models = {arch: (cfg, init_params(cfg, device="cpu"))
+              for arch in ("yi-6b", "qwen2.5-32b", "olmoe-1b-7b")}
+    return TrafficSim(get_scenario("steady", 0.25), models=models,
+                      policy="cluster_system", hw="gh200_x2", tp=2, **kw)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: TrafficSim(get_scenario("steady", 0.25)),
+    lambda: _micro_sim(),
+], ids=["TrafficSim", "TrafficSim-cluster"])
+def test_traffic_sim_defaults_to_the_card(make, monkeypatch):
+    """Without ``device`` the sim targets the card: it raises where there is
+    none, and where there is one it refuses models that live elsewhere."""
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="the engine runs on cuda"):
+        _micro_sim()
+    assert _micro_sim(device="cpu").run().metrics["completed"] == 6
+
+
+@pytest.mark.parametrize("module", BENCH_MODULES + [
+    "repro_torch.bench.fault_serve", "repro_torch.bench.cluster_scaling"])
 def test_bench_modules_default_to_the_card(module, monkeypatch):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,6 +1,7 @@
-"""The port's ServeEngine against the JAX package's on reduced yi-6b: the same
-weights and schedules give the same tokens, the same EngineStats and, under
-the same hardware model, bit-identical unified-memory traffic and clock."""
+"""The port's ServeEngine against the JAX package's on reduced yi-6b, and on
+the reduced MoE archs (olmoe-1b-7b, granite-moe-3b-a800m): the same weights
+and schedules give the same tokens, the same EngineStats and, under the same
+hardware model, bit-identical unified-memory traffic and clock."""
 import dataclasses
 
 import jax
@@ -25,13 +26,32 @@ from repro_torch.models.cache import kv_head_layout
 from repro_torch.serve import PagedKVCache, ServeEngine, collect, summarize
 
 
-@pytest.fixture(scope="module")
-def yi():
-    jcfg = jax_get_config("yi-6b").reduced()
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The models here are tiny: one intra-op thread per process keeps
+    parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(arch):
+    jcfg = jax_get_config(arch).reduced()
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = get_config("yi-6b").reduced()
+    cfg = get_config(arch).reduced()
     model = load_jax_params(cfg, jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, cfg, model
+
+
+@pytest.fixture(scope="module")
+def yi():
+    return _pair("yi-6b")
+
+
+@pytest.fixture(scope="module", params=["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def moe_pair(request):
+    return _pair(request.param)
 
 
 def _oversub_um(make_um, hw, cfg, layout_fn, page_bytes_fn, kw):
@@ -83,7 +103,18 @@ def _run(engine_cls, cfg, params, kw, um, prompts, n_new, **extra):
 
 @pytest.mark.parametrize("name", sorted(SCHEDULES))
 def test_engine_matches_jax_engine(yi, name):
-    jcfg, jparams, cfg, model = yi
+    _check_engine_matches_jax_engine(yi, name)
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+def test_moe_engine_matches_jax_engine(moe_pair, name):
+    """The MoE blocks route each prefill chunk's and decode batch's tokens
+    as the JAX engine's do, so tokens, stats and charges all agree."""
+    _check_engine_matches_jax_engine(moe_pair, name)
+
+
+def _check_engine_matches_jax_engine(pair, name):
+    jcfg, jparams, cfg, model = pair
     kw, umem = SCHEDULES[name]
     prompts, n_new = _prompts(name, cfg.vocab_size)
     if umem == "default":
