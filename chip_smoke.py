@@ -12,7 +12,9 @@ decode shapes), drives the port's main paths through the kernels, counting
 each kernel's launches: the six paper apps at full size (hotspot, srad and
 qiskit through their kernels; pathfinder, needle and bfs in plain torch),
 paged-KV serving of full-width yi-6b and of full-width olmoe-1b-7b (8
-requests each through ``ServeEngine``), the traffic harness (the burst
+requests each through ``ServeEngine``), full-width rwkv6-1.6b and
+recurrentgemma-2b (8 prompts of 2304 tokens each through ``prefill`` and
+32 greedy ``decode_step``s, in plain torch), the traffic harness (the burst
 preset over the reduced configs, and a node loss on the two-superchip
 cluster pool), and the benchmark harness (``repro_torch.bench.run``, whose
 ``kernels_micro`` launches every kernel, flash attention among them, with
@@ -20,9 +22,12 @@ the serving benchmarks at their smoke sizes). It holds the apps' card
 results against the CPU on small shared inputs and their charges against
 the parity fixture, the paged engine's tokens against the dense decode path
 at full width (yi-6b and olmoe-1b-7b) and against the CPU on reduced yi-6b,
-the traffic records and tokens against the CPU and the node-loss tokens
-against the fault-free run, the harness's rows against the same modules on
-the CPU, times each kernel at its main-path shape, and prints:
+the recurrent archs' forward against prefill and decode at full width, their
+tokens against the CPU's on reduced configs and their sequence mixers against
+the per-token forms, the traffic records and tokens against the CPU and the
+node-loss tokens against the fault-free run, the harness's rows against the
+same modules on the CPU, times each kernel at its main-path shape, and
+prints:
 
 * one JSON line per phase;
 * ``{"kernels": [...]}``: each kernel's launches on the main path, largest
@@ -136,6 +141,19 @@ FAULT = dict(seed=3, policy="cluster_system", hw="gh200_x2", tp=2,
 # a MoE token may also differ where a routing decision it depends on was
 # within this much router probability of the next expert (a near-tie)
 ROUTE_GAP_TOL = 1e-5
+# the recurrent archs at full width, fp32, random weights from a seed: 8
+# prompts of 2304 tokens (> recurrentgemma's 2048-token window, so prefill
+# rolls the local layers' rings; 18 of rwkv6's 128-token chunks), then 32
+# greedy decode steps from prefill's caches
+RECURRENT = dict(archs=("rwkv6-1.6b", "recurrentgemma-2b"), batch=8,
+                 prompt_len=2304, new_tokens=32)
+RECURRENT_FWD_EXTRA = 16   # check (i): forward over 2304 + 16 tokens, B = 1
+RECURRENT_FWD_RTOL = 1e-3  # of max |logit|, fp32 without TF32
+RECURRENT_SMALL = dict(batch=2, prompt_len=40, new_tokens=12)  # check (ii)
+WKV_SHAPE = (2, 512, 32, 64)  # check (iii): rwkv6's heads, B 2, S 512
+SCAN_SHAPE = (2, 512, 2560)   # check (iii): recurrentgemma's lru width
+RECURRENT_SCAN_TOL = 1e-4     # abs
+HELD_BYTES_MAX = 1 << 30  # what earlier phases may still hold before weights
 # the serving benchmarks run in the bench phase at their smoke sizes
 BENCH_SMOKE = {"LM_SERVE_SMOKE": "1", "FAULT_SMOKE": "1", "CLUSTER_SMOKE": "1"}
 BENCH_BY_NAME = ["repro_torch.bench.fault_serve",
@@ -807,6 +825,8 @@ def phase_serve_moe():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    check(before <= HELD_BYTES_MAX,
+          f"{before} bytes still held before olmoe's weights are made")
     cfg = get_config(SERVE_MOE["arch"])
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator("cuda").manual_seed(0),
@@ -940,6 +960,245 @@ def phase_serve_card_vs_cpu() -> None:
           f"card tokens {toks['cuda']} != cpu tokens {toks['cpu']}")
     emit("serve_card_vs_cpu", arch=cfg.name, requests=len(prompts),
          tokens_equal=True, tokens=toks["cuda"])
+
+
+def greedy(model, toks, new: int):
+    """Prefill toks (B,S), then ``new`` greedy decode steps from prefill's
+    caches. Returns the tokens (B, new) as lists and, for each, the top-2
+    logit margin and max |logit| of the logits it was taken from."""
+    B, S = toks.shape
+    dev = toks.device
+    logits, caches = model.prefill(toks)
+    out, margins = [], []
+    for i in range(new):
+        lg = logits[:, -1]
+        top = torch.topk(lg, 2, dim=-1).values
+        margins.append(torch.stack([top[:, 0] - top[:, 1],
+                                    lg.abs().amax(dim=-1)], -1))
+        tok = torch.argmax(lg, dim=-1)
+        out.append(tok)
+        if i + 1 < new:
+            logits, caches = model.decode_step(
+                tok[:, None].int(), torch.full((B,), S + i, dtype=torch.int32,
+                                               device=dev), caches)
+    return (torch.stack(out, 1).tolist(),
+            torch.stack(margins, 1).cpu().tolist())
+
+
+def recurrent_card_vs_cpu(arch: str) -> dict:
+    """Check (ii): the reduced arch with the same weights (a numpy tree from
+    a seed) on the card and on the CPU gives the same greedy tokens, or
+    differs first where the CPU's top-2 logit margin is within rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import load_jax_params, numpy_params
+
+    cfg = get_config(arch).reduced()
+    tree = numpy_params(cfg, seed=3)
+    B, S, new = (RECURRENT_SMALL[k] for k in ("batch", "prompt_len",
+                                               "new_tokens"))
+    toks = np.random.default_rng(3).integers(2, cfg.vocab_size, (B, S))
+    got = {dev: greedy(load_jax_params(cfg, tree, dev),
+                       torch.as_tensor(toks, device=dev), new)
+           for dev in ("cuda", "cpu")}
+    (card, _), (cpu, margins) = got["cuda"], got["cpu"]
+    flips = []
+    for b in range(B):
+        i = next((i for i, (x, y) in enumerate(zip(card[b], cpu[b]))
+                  if x != y), None)
+        if i is not None:
+            margin, scale = margins[b][i]
+            check(margin < MARGIN_RTOL * scale,
+                  f"{cfg.name}: card token {card[b][i]} != cpu {cpu[b][i]} "
+                  f"at {i} with top-2 margin {margin}")
+            flips.append(dict(seq=b, step=i, margin=margin,
+                              margin_tol=MARGIN_RTOL * scale))
+    return dict(arch=cfg.name, batch=B, prompt_len=S, new_tokens=new,
+                tokens_equal=not flips, flips=flips, tokens=card)
+
+
+def recurrent_scan_check(arch: str, gen) -> dict:
+    """Check (iii) on the card: rwkv6's chunked wkv against its per-token
+    oracle at rwkv6's head shape, or the rglru log-depth scan against the
+    per-token recurrence at recurrentgemma's width."""
+    from repro_torch.models import linear_scan, wkv6_chunked, wkv6_ref
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+
+    if arch.startswith("rwkv6"):
+        B, S, H, K = WKV_SHAPE
+        r, k, v = (randn(B, S, H, K, scale=0.5) for _ in range(3))
+        wlog = -torch.exp(randn(B, S, H, K) - 2.0)
+        args = (r, k, v, wlog, randn(H, K, scale=0.3),
+                torch.zeros(B, H, K, K, device="cuda"))
+        y, sT = wkv6_chunked(*args, 128)
+        y_ref, sT_ref = wkv6_ref(*args)
+        err = max(float((y - y_ref).abs().max()),
+                  float((sT - sT_ref).abs().max()))
+        row = dict(what="wkv6_chunked vs wkv6_ref", shape=WKV_SHAPE, chunk=128)
+    else:
+        B, S, w = SCAN_SHAPE
+        a = 0.5 + 0.5 * torch.rand((B, S, w), device="cuda", generator=gen)
+        b = randn(B, S, w)
+        h = linear_scan(a, b)
+        h_ref, state = torch.empty_like(b), torch.zeros_like(b[:, 0])
+        for t in range(S):
+            state = a[:, t] * state + b[:, t]
+            h_ref[:, t] = state
+        err = float((h - h_ref).abs().max())
+        row = dict(what="linear_scan vs the per-token recurrence",
+                   shape=SCAN_SHAPE)
+    check(err <= RECURRENT_SCAN_TOL, f"{row['what']}: error {err}")
+    return dict(row, max_abs_err=err, tol=RECURRENT_SCAN_TOL)
+
+
+class MixerTimer:
+    """CUDA events around each mixer call of ``model`` by layer kind and
+    around ``wkv6_chunked`` and the rglru scan, apart for prefill and
+    decode; ``close()`` undoes the wrapping."""
+
+    def __init__(self, model):
+        import repro_torch.models.rglru as rglru_mod
+        import repro_torch.models.rwkv as rwkv_mod
+
+        self.stage, self.events = "prefill", {}
+        self.model = model
+        self.undo = [(rwkv_mod, "wkv6_chunked", rwkv_mod.wkv6_chunked),
+                     (rglru_mod, "linear_scan", rglru_mod.linear_scan)]
+        rwkv_mod.wkv6_chunked = self.wrap(rwkv_mod.wkv6_chunked, "wkv6_chunked")
+        rglru_mod.linear_scan = self.wrap(rglru_mod.linear_scan, "rglru_scan")
+        for blk in model.layers:
+            name = "local_attention" if blk.kind == "local" else blk.kind
+            blk.mixer.forward = self.wrap(blk.mixer.forward, name)
+            if hasattr(blk.mixer, "decode"):
+                blk.mixer.decode = self.wrap(blk.mixer.decode, name)
+
+    def wrap(self, fn, name):
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.events.setdefault((self.stage, name), []).append(ev)
+            return out
+        return run
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for (stage, name), evs in sorted(self.events.items()):
+            out.setdefault(stage, {})[name] = dict(
+                calls=len(evs), ms=sum(a.elapsed_time(b) for a, b in evs))
+        return out
+
+    def close(self) -> None:
+        for mod, attr, fn in self.undo:
+            setattr(mod, attr, fn)
+        for blk in self.model.layers:
+            for attr in ("forward", "decode"):
+                blk.mixer.__dict__.pop(attr, None)
+        self.model = None
+
+
+def phase_recurrent() -> None:
+    """The recurrent archs at full width on the card (fp32 random weights
+    made there from a seed; nothing held from earlier phases above 1 GiB):
+    8 prompts of 2304 tokens through ``prefill``, 32 greedy ``decode_step``s
+    from its caches, each mixer kind's CUDA-event time; then check (i)
+    forward vs prefill + teacher-forced decode at B = 1, (ii) the reduced
+    arch's greedy tokens vs the CPU's, (iii) the sequence mixer against its
+    per-token form on the card. One line per arch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    B, S, new = (RECURRENT[k] for k in ("batch", "prompt_len", "new_tokens"))
+    for n, arch in enumerate(RECURRENT["archs"]):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        check(before <= HELD_BYTES_MAX,
+              f"{before} bytes still held before {arch}'s weights are made")
+        cfg = get_config(arch)
+        gen = torch.Generator("cuda").manual_seed(n)
+        t0 = time.perf_counter()
+        model = init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        toks = torch.as_tensor(
+            np.random.default_rng(n).integers(2, cfg.vocab_size, (B, S)),
+            device="cuda")
+        counters = zero_counters()
+        timer = MixerTimer(model)
+        try:
+            t0 = time.perf_counter()
+            logits, caches = model.prefill(toks)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()),
+                  f"{arch}: prefill logits {tuple(logits.shape)} not finite")
+            timer.stage = "decode"
+            out, step_s = [], []
+            for i in range(new):
+                tok = torch.argmax(logits[:, -1], dim=-1)
+                out.append(tok)
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(
+                    tok[:, None].int(),
+                    torch.full((B,), S + i, dtype=torch.int32, device="cuda"),
+                    caches)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all()),
+                  f"{arch}: decode logits not finite")
+            mixer_ms = timer.ms()
+        finally:
+            timer.close()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        del caches, logits
+        peak = torch.cuda.max_memory_allocated()
+
+        # (i) forward over S + extra tokens vs prefill(S) + teacher-forced
+        # decode of the extra tokens, B = 1
+        x = torch.as_tensor(np.random.default_rng(10 + n).integers(
+            2, cfg.vocab_size, (1, S + RECURRENT_FWD_EXTRA)), device="cuda")
+        full = model(x)
+        lg, caches = model.prefill(x[:, :S])
+        errs = [float((lg[:, 0] - full[:, S - 1]).abs().max())]
+        for i in range(S, S + RECURRENT_FWD_EXTRA):
+            lg, caches = model.decode_step(
+                x[:, i:i + 1].int(), torch.tensor([i], dtype=torch.int32,
+                                                  device="cuda"), caches)
+            errs.append(float((lg[:, 0] - full[:, i]).abs().max()))
+        scale = float(full.abs().max())
+        del full, lg, caches, x
+        fwd_err = max(errs)
+        check(fwd_err <= RECURRENT_FWD_RTOL * scale,
+              f"{arch}: forward vs prefill + decode differ by {fwd_err} "
+              f"(max |logit| {scale})")
+        del model
+        torch.cuda.empty_cache()
+        decode_ms = statistics.median(step_s) * 1e3
+        bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+        emit("recurrent", arch=arch, params=cfg.param_count(), dtype="float32",
+             batch=B, prompt_len=S, new_tokens=new,
+             device_bytes_before_init=before, init_s=init_s,
+             weight_bytes=weight_bytes, decode_weight_bound_ms=bound,
+             prefill_s=prefill_s, prefill_tok_per_s=B * S / prefill_s,
+             decode_ms_per_step=decode_ms,
+             decode_ms_per_step_mean=sum(step_s) / len(step_s) * 1e3,
+             decode_share_of_bound=bound / decode_ms,
+             peak_device_bytes=peak, mixer_ms=mixer_ms, launches=launches,
+             tokens=torch.stack(out, 1)[:, :8].tolist(),
+             tf32=torch.backends.cuda.matmul.allow_tf32,
+             check_forward=dict(tokens=S + RECURRENT_FWD_EXTRA,
+                                max_abs_err=fwd_err, max_abs_logit=scale,
+                                tol=RECURRENT_FWD_RTOL * scale),
+             check_card_vs_cpu=recurrent_card_vs_cpu(arch),
+             check_scan=recurrent_scan_check(arch, gen))
 
 
 def record_margins(sim) -> tuple:
@@ -1394,6 +1653,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu()
+    phase_recurrent()
     launches["paged_attention"] += phase_traffic()["paged_attention"]
     launches["flash_attention"] = phase_bench()["flash_attention"]
     times = phase_timing(paged_args)

@@ -1,0 +1,3 @@
+"""The port's runnable examples, each ``python -m repro_torch.examples.<name>
+[--device cpu]`` (on the CUDA card by default): ``trace_replay``,
+``buffer_api``, ``qv_oversubscription`` and ``serve_batched``."""

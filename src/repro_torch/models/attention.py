@@ -6,6 +6,9 @@ Blocked path: block-causal online softmax over (q block, kv block) pairs;
               only blocks inside the causal band are computed
 Decode path:  one query token against a dense KV cache
 
+Sliding-window (local) attention runs all three with a window mask, and
+decodes against a ring buffer of the window's last W tokens.
+
 The projections and ``_sdpa`` are plain large products (``torch.einsum``),
 as the JAX package leaves them to XLA. Paged decode attention, the serve
 path's kernel, is ``repro_torch.kernels.paged_attention``.
@@ -105,36 +108,46 @@ class Attention(nn.Module):
         o = o.reshape(B, S, self.layout.n_q_eff, self.cfg.head_dim)
         return torch.einsum("bshe,hed->bsd", o, self.wo)
 
-    def forward(self, x, policy: RunPolicy, positions
+    def forward(self, x, policy: RunPolicy, positions, window: int = 0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """``attn_apply`` (global attention): causal self-attention over x
-        (B,S,d) at ``positions`` (S,); returns the output and the sequence's
-        {'k', 'v'} (B,S,N,D)."""
+        """``attn_apply``: causal self-attention over x (B,S,d) at
+        ``positions`` (S,), over the last ``window`` keys when window > 0;
+        returns the output and the sequence's {'k', 'v'} (B,S,N,D)."""
         S = x.shape[1]
         q, k, v = self.project_qkv(x, positions)
         qb = policy.attn_q_block
         if qb and S > qb:
-            o = _blocked_causal(q, k, v, qb, policy.attn_kv_block or qb, 0)
+            o = _blocked_causal(q, k, v, qb, policy.attn_kv_block or qb, window)
         else:
             ar = torch.arange(S, device=x.device)
-            o = _sdpa(q, k, v, _causal_bias(ar, ar, 0))
+            o = _sdpa(q, k, v, _causal_bias(ar, ar, window))
         return self.out_proj(o, policy), {"k": k, "v": v}
 
-    def decode(self, x, pos, cache: Dict[str, torch.Tensor], policy: RunPolicy
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """``attn_decode`` over a dense cache: x (B,1,d); pos (B,) absolute
-        position of the new token; cache {'k','v'} (B,S,N,D), written in
-        place at ``pos``. The ring-buffer cache of sliding-window layers
-        comes with the slice that runs local attention."""
+    def decode(self, x, pos, cache: Dict[str, torch.Tensor], policy: RunPolicy,
+               window: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``attn_decode``: x (B,1,d); pos (B,) absolute position of the new
+        token; cache {'k','v'} (B,Sc,N,D), written in place. With window > 0
+        and Sc == window the cache is a ring: the token goes to slot
+        pos % W, and slot s holds position pos - ((pos - s) mod W), unwritten
+        where that is negative. Otherwise it is dense and the token goes to
+        row pos; the caller keeps pos < Sc (``TransformerLM.decode_step``
+        checks it)."""
         B = x.shape[0]
         q, k_new, v_new = self.project_qkv(x, pos[:, None])
         ck, cv = cache["k"], cache["v"]
         Sc = ck.shape[1]
         bidx = torch.arange(B, device=x.device)
-        ck[bidx, pos.long()] = k_new[:, 0]
-        cv[bidx, pos.long()] = v_new[:, 0]
-        kpos = torch.arange(Sc, device=x.device)[None, :].expand(B, Sc)
-        o = _sdpa(q, ck, cv, _causal_bias(pos[:, None], kpos, 0))
+        pos = pos.long()
+        if window > 0 and Sc == window:  # ring buffer
+            idx = pos % window
+            s = torch.arange(window, device=x.device)[None, :]
+            kpos = pos[:, None] - torch.remainder(pos[:, None] - s, window)
+        else:
+            idx = pos
+            kpos = torch.arange(Sc, device=x.device)[None, :].expand(B, Sc)
+        ck[bidx, idx] = k_new[:, 0]
+        cv[bidx, idx] = v_new[:, 0]
+        o = _sdpa(q, ck, cv, _causal_bias(pos[:, None], kpos, window))
         return self.out_proj(o, policy), cache
 
 

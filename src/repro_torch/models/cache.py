@@ -1,10 +1,10 @@
-"""The dense decode cache (the port of ``repro.models.cache`` for attention
-layers).
+"""Decode caches: dense KV, the ring buffer of sliding-window layers, and
+the recurrent states (the port of ``repro.models.cache``).
 
 The paged KV cache that serving uses is ``repro_torch.serve.paged`` with
-``repro_torch.kernels.paged_attention``; this dense layout is what
-:meth:`TransformerLM.decode_step` reads, and the card uses it to check the
-paged engine.
+``repro_torch.kernels.paged_attention``; these dense layouts are what
+:meth:`TransformerLM.decode_step` reads, and the card uses them to check
+the paged engine.
 """
 from __future__ import annotations
 
@@ -23,17 +23,39 @@ def kv_head_layout(cfg, tp: int) -> HeadLayout:
 def init_cache(cfg, B: int, S: int, *, tp: int = 1,
                dtype: torch.dtype = torch.bfloat16,
                device=None) -> List[Dict[str, torch.Tensor]]:
-    """One {'k', 'v'} pair of zeros (B, S, Hkv_eff, D) per layer. Only
-    global attention layers exist in the port so far; the ring buffer of
-    local attention and the recurrent states come with their slices."""
+    """One cache of zeros per layer, on ``device`` (the CUDA card unless the
+    caller passes ``device="cpu"``), by the layer's kind:
+
+    * ``attention``: {'k', 'v'} (B, S, Hkv_eff, D);
+    * ``local``: {'k', 'v'} (B, min(W, S), Hkv_eff, D), a ring of the last
+      W tokens when S >= W;
+    * ``rglru``: {'h'} (B, w) fp32 and {'conv'} (B, conv_width - 1, w);
+    * ``rwkv6``: {'s'} (B, H, hs, hs) fp32 and the token-shift inputs
+      {'xa'}, {'xf'} (B, d).
+    """
     dev = resolve_device(device)
-    kinds = set(cfg.layer_kinds())
-    if kinds != {"attention"}:
-        raise NotImplementedError(
-            f"decode caches for {sorted(kinds - {'attention'})} layers come "
-            "with the recurrent-arch slice of the port")
-    lay = kv_head_layout(cfg, tp)
-    shape = (B, S, lay.n_kv_eff, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in range(cfg.num_layers)]
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if cfg.mixer in ("attention", "rglru_hybrid"):
+        lay = kv_head_layout(cfg, tp)
+    caches: List[Dict[str, torch.Tensor]] = []
+    for kind in cfg.layer_kinds():
+        if kind in ("attention", "local"):
+            n = S if kind == "attention" else min(cfg.local_window, S)
+            caches.append({"k": zeros(B, n, lay.n_kv_eff, cfg.head_dim),
+                           "v": zeros(B, n, lay.n_kv_eff, cfg.head_dim)})
+        elif kind == "rglru":
+            w = cfg.lru_width or cfg.d_model
+            caches.append({"h": zeros(B, w, dt=torch.float32),
+                           "conv": zeros(B, cfg.conv_width - 1, w)})
+        elif kind == "rwkv6":
+            hs = cfg.rwkv_head_size
+            caches.append({"s": zeros(B, cfg.d_model // hs, hs, hs,
+                                      dt=torch.float32),
+                           "xa": zeros(B, cfg.d_model),
+                           "xf": zeros(B, cfg.d_model)})
+        else:
+            raise ValueError(kind)
+    return caches

@@ -21,10 +21,13 @@ class RunPolicy:
     all-reduce (``quantize_tp_collectives``) needs a device mesh; it comes
     with the launch slice of the port and raises until then. MoE layers
     route with ``moe_capacity_factor`` through ``moe_impl``: ``"dense"``
-    (GShard dispatch einsums) or ``"sorted"`` (scatter dispatch)."""
+    (GShard dispatch einsums) or ``"sorted"`` (scatter dispatch). rwkv6's
+    wkv runs in chunks of ``rwkv_chunk`` tokens (halved until it divides the
+    sequence)."""
 
     attn_q_block: int = 0  # 0 => unblocked attention
     attn_kv_block: int = 0
+    rwkv_chunk: int = 128
     moe_capacity_factor: float = 1.25
     quantize_tp_collectives: bool = False
     moe_impl: str = "dense"  # dense (GShard einsum) | sorted (scatter)

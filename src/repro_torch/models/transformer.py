@@ -1,15 +1,18 @@
 """TransformerLM: the decoder of ``repro.models.transformer`` as an
-``nn.Module`` tree, for attention archs.
+``nn.Module`` tree, for all ten archs.
 
-``TransformerLM`` -> ``Block`` -> ``Attention`` / ``MLP`` / ``Norm``. The
+``TransformerLM`` -> ``Block`` -> mixer / ffn / ``Norm``. A block's mixer
+follows its layer kind: ``Attention`` for ``attention`` and ``local``
+(sliding-window) layers, :class:`~repro_torch.models.rglru.RgLru` for
+``rglru``, :class:`~repro_torch.models.rwkv.RwkvTimeMix` for ``rwkv6``; its
+ffn is :class:`~repro_torch.models.rwkv.RwkvChannelMix` for ``rwkv6``, a
+:class:`~repro_torch.models.moe.MoE` for a MoE arch, else an ``MLP``. The
 parameters carry the JAX tree's keys (``layers.<i>.mixer.wq``,
-``layers.<i>.ffn.w_gate``, ``layers.<i>.norm1.scale``, ``final_norm.scale``,
-``embed.w``, ``head.w``), so ``models/convert.py`` maps one onto the other
-name for name. ``forward``, ``prefill`` and ``decode_step`` run under
-``torch.inference_mode()``. A MoE arch's ``ffn`` is a
-:class:`~repro_torch.models.moe.MoE` (``ffn.router``, ``ffn.w_gate``, ...).
-rglru and rwkv6 layers come with a later slice and raise
-``NotImplementedError``.
+``layers.<i>.mixer.lambda``, ``layers.<i>.ffn.w_gate``,
+``layers.<i>.norm1.scale``, ``final_norm.scale``, ``embed.w``, ``head.w``),
+so ``models/convert.py`` maps one onto the other name for name.
+``forward``, ``prefill`` and ``decode_step`` run under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.cache import kv_head_layout
 from repro_torch.models.layers import MLP, Norm, RunPolicy, dense_init, sinusoidal_table
 from repro_torch.models.moe import MoE
+from repro_torch.models.rglru import RgLru
+from repro_torch.models.rwkv import RwkvChannelMix, RwkvTimeMix
 
 
 class _Weight(nn.Module):
@@ -35,33 +40,82 @@ class _Weight(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: x + mixer(norm1(x)), then + ffn(norm2(x))."""
+    """Pre-norm residual block of one layer kind: x + mixer(norm1(x)), then
+    + ffn(norm2(x)) (``_layer_init`` / ``_block_apply``)."""
 
-    def __init__(self, cfg, layout, dtype: torch.dtype, device, tp: int = 1):
+    def __init__(self, cfg, kind: str, layout, dtype: torch.dtype, device,
+                 tp: int = 1):
         super().__init__()
+        self.kind = kind
+        self.window = cfg.local_window if kind == "local" else 0
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.mixer = Attention(cfg, layout, dtype, device)
+        if kind in ("attention", "local"):
+            self.mixer = Attention(cfg, layout, dtype, device)
+        elif kind == "rglru":
+            self.mixer = RgLru(cfg, dtype, device)
+        elif kind == "rwkv6":
+            self.mixer = RwkvTimeMix(cfg, dtype, device)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
         self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.ffn = (MoE(cfg, dtype, device, tp) if cfg.is_moe
-                    else MLP(cfg, dtype, device))
+        if kind == "rwkv6":
+            self.ffn = RwkvChannelMix(cfg, dtype, device)
+        elif cfg.is_moe:
+            self.ffn = MoE(cfg, dtype, device, tp)
+        else:
+            self.ffn = MLP(cfg, dtype, device)
 
     def forward(self, x, policy: RunPolicy, positions):
-        mixed, kv = self.mixer(self.norm1(x), policy, positions)
+        """x (B,S,d) from the start of the sequence -> (x, this layer's
+        decode cache after it): {'k', 'v'} (a local layer's last W tokens as
+        a ring when S > W), {'h', 'conv'} or {'s', 'xa', 'xf'}."""
+        h = self.norm1(x)
+        if self.kind == "rwkv6":
+            mixed, c = self.mixer(h, policy)
+            cache = {"s": c["s"], "xa": c["x_prev"]}
+        elif self.kind == "rglru":
+            mixed, cache = self.mixer(h, policy)
+        else:
+            mixed, cache = self.mixer(h, policy, positions, window=self.window)
+            S, W = x.shape[1], self.window
+            if W and S > W:  # slot s holds the position that is s mod W
+                cache = {n: torch.roll(t[:, S - W:], S % W, dims=1)
+                         for n, t in cache.items()}
         x = x + mixed
-        return x + self.ffn(self.norm2(x), policy), kv
+        h = self.norm2(x)
+        if self.kind == "rwkv6":
+            y, cache["xf"] = self.ffn(h)
+        else:
+            y = self.ffn(h, policy)
+        return x + y, cache
 
     def decode(self, x, pos, cache, policy: RunPolicy):
-        mixed, cache = self.mixer.decode(self.norm1(x), pos, cache, policy)
+        """One token x (B,1,d) at positions pos (B,) -> (x, the updated
+        cache); attention caches are written in place."""
+        h = self.norm1(x)
+        if self.kind == "rwkv6":  # the time mix over a sequence of one
+            mixed, c = self.mixer(h, policy, x_prev=cache["xa"], s0=cache["s"])
+            cache = {"s": c["s"], "xa": c["x_prev"], "xf": cache["xf"]}
+        elif self.kind == "rglru":
+            mixed, cache = self.mixer.decode(h, cache)
+        else:
+            mixed, cache = self.mixer.decode(h, pos, cache, policy,
+                                             window=self.window)
         x = x + mixed
-        return x + self.ffn(self.norm2(x), policy), cache
+        h = self.norm2(x)
+        if self.kind == "rwkv6":
+            y, cache["xf"] = self.ffn(h, x_prev=cache["xf"])
+        else:
+            y = self.ffn(h, policy)
+        return x + y, cache
 
-
-def _check_supported(cfg) -> None:
-    other = sorted(set(cfg.layer_kinds()) - {"attention"})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {other} layers come with the recurrent-arch slice "
-            "of the port")
+    def dense_len(self, cache) -> Optional[int]:
+        """Rows of a dense KV cache (the positions it can take), None for a
+        ring buffer or a recurrent state."""
+        if self.kind not in ("attention", "local"):
+            return None
+        n = cache["k"].shape[1]
+        return None if self.window and n == self.window else n
 
 
 class TransformerLM(nn.Module):
@@ -72,12 +126,11 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg, *, tp: int = 1, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
-        self.layout = kv_head_layout(cfg, tp)
+        self.layout = kv_head_layout(cfg, tp) if cfg.mixer != "rwkv6" else None
         self.layers = nn.ModuleList(
-            Block(cfg, self.layout, dtype, device, tp)
-            for _ in range(cfg.num_layers))
+            Block(cfg, kind, self.layout, dtype, device, tp)
+            for kind in cfg.layer_kinds())
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
         if cfg.input_kind == "tokens" or cfg.tie_embeddings:
             self.embed = _Weight((cfg.vocab_size, cfg.d_model), dtype, device)
@@ -91,8 +144,8 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Random weights as the JAX ``init_params`` draws them: N(0,
-        1/fan_in) matrices, unit norm scales, zero biases (other numbers:
-        the generators differ)."""
+        1/fan_in) matrices, unit norm scales, zero biases, and each
+        recurrent mixer's own (other numbers: the generators differ)."""
         for blk in self.layers:
             blk.mixer.reset_parameters(gen)
             blk.ffn.reset_parameters(gen)
@@ -133,7 +186,7 @@ class TransformerLM(nn.Module):
     def prefill(self, tokens, policy: Optional[RunPolicy] = None
                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
         """Run the whole prompt; return the last position's logits (B,1,V)
-        and each layer's {'k', 'v'} (B,S,Hkv_eff,D)."""
+        and each layer's decode cache (:meth:`Block.forward`)."""
         return self._run(tokens, policy or RunPolicy(), last_only=True)
 
     def _run(self, tokens, policy: RunPolicy, last_only=False):
@@ -142,8 +195,8 @@ class TransformerLM(nn.Module):
         x = self.embed_in(tokens, positions)
         caches = []
         for blk in self.layers:
-            x, kv = blk(x, policy, positions)
-            caches.append(kv)
+            x, cache = blk(x, policy, positions)
+            caches.append(cache)
         x = self.final_norm(x)
         return self.logits_out(x[:, -1:] if last_only else x), caches
 
@@ -151,13 +204,23 @@ class TransformerLM(nn.Module):
     def decode_step(self, tokens, pos, cache: List[Dict[str, torch.Tensor]],
                     policy: Optional[RunPolicy] = None):
         """One token per sequence: tokens (B,1) or (B,1,d); pos (B,) absolute
-        positions. The cache (:func:`init_cache`) is updated in place and
-        returned with the logits (B,1,V)."""
+        positions. Takes the caches of :func:`init_cache` or
+        :meth:`prefill` and returns the logits (B,1,V) with the updated
+        caches (attention caches are written in place). Raises ValueError
+        when a position does not fit a dense KV cache."""
         policy = policy or RunPolicy()
+        dense = [n for blk, c in zip(self.layers, cache)
+                 if (n := blk.dense_len(c)) is not None]
+        if dense and int(pos.max()) >= min(dense):  # one host sync a step
+            raise ValueError(
+                f"position {int(pos.max())} does not fit a dense KV cache of "
+                f"{min(dense)} positions")
         x = self.embed_in(tokens, pos[:, None])
+        new_cache = []
         for blk, c in zip(self.layers, cache):
-            x, _ = blk.decode(x, pos, c, policy)
-        return self.logits_out(self.final_norm(x)), cache
+            x, c = blk.decode(x, pos, c, policy)
+            new_cache.append(c)
+        return self.logits_out(self.final_norm(x)), new_cache
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None, *,

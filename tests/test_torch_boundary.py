@@ -28,7 +28,13 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.qv_gate import apply_two_qubit_gate
 from repro_torch.kernels.stencil5 import stencil5
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import init_params
+from repro_torch.examples import (
+    buffer_api,
+    qv_oversubscription,
+    serve_batched,
+    trace_replay,
+)
+from repro_torch.models import init_cache, init_params
 from repro_torch.serve import ServeEngine, TrafficSim, get_scenario
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -53,7 +59,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.paged_attention, repro_torch.launch.serve, "
             "repro_torch.kernels.flash_attention, repro_torch.bench.run, "
             "repro_torch.runtime, repro_torch.cluster, "
-            "repro_torch.bench.fault_serve, repro_torch.bench.cluster_scaling; "
+            "repro_torch.bench.fault_serve, repro_torch.bench.cluster_scaling, "
+            "repro_torch.core.trace, repro_torch.examples.trace_replay, "
+            "repro_torch.examples.buffer_api, "
+            "repro_torch.examples.qv_oversubscription, "
+            "repro_torch.examples.serve_batched; "
             "[__import__(m) for m in repro_torch.bench.run.MODULES]; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -67,6 +77,8 @@ def test_import_leaves_jax_and_repro_out():
     assert "repro_torch.serve.traffic" in mods
     assert "repro_torch.models.moe" in mods
     assert "repro_torch.cluster.policy" in mods
+    assert "repro_torch.models.rwkv" in mods
+    assert "repro_torch.models.rglru" in mods
     assert [m for m in mods if _banned(m)] == []
 
 
@@ -94,13 +106,33 @@ def test_entry_points_default_to_the_card(run, monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     lambda cfg: init_params(cfg),
+    lambda cfg: init_cache(cfg, 1, 8),
     lambda cfg: ServeEngine(cfg, init_params(cfg, device="cpu")),
     lambda cfg: launch_serve.main(["--arch", "yi-6b", "--reduced"]),
-], ids=["init_params", "ServeEngine", "launch.serve"])
+], ids=["init_params", "init_cache", "ServeEngine", "launch.serve"])
 def test_serve_entry_points_default_to_the_card(entry, monkeypatch):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry(get_config("yi-6b").reduced())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_recurrent_entry_points_default_to_the_card(arch, monkeypatch):
+    cfg = get_config(arch).reduced()
+    _no_card(monkeypatch)
+    for entry in (lambda: init_params(cfg), lambda: init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+
+
+@pytest.mark.parametrize("example", [trace_replay, buffer_api,
+                                     qv_oversubscription, serve_batched],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_examples_default_to_the_card(example, monkeypatch, tmp_path):
+    _no_card(monkeypatch)
+    argv = ["--trace", str(tmp_path / "t.trace")] if example is trace_replay else []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(argv)
 
 
 def _micro_sim(**kw):
