@@ -14,7 +14,11 @@ qiskit through their kernels; pathfinder, needle and bfs in plain torch),
 paged-KV serving of full-width yi-6b and of full-width olmoe-1b-7b (8
 requests each through ``ServeEngine``), full-width rwkv6-1.6b and
 recurrentgemma-2b (8 prompts of 2304 tokens each through ``prefill`` and
-32 greedy ``decode_step``s, in plain torch), the traffic harness (the burst
+32 greedy ``decode_step``s, in plain torch), training (full-width yi-6b cut
+to 12 layers through ``make_train_step``/``Trainer``; the
+``train_100m`` example through a failure and its restore; the UM-backed
+``UMTrainer`` at the paper-scale spec; none of them launches a kernel), the
+traffic harness (the burst
 preset over the reduced configs, and a node loss on the two-superchip
 cluster pool), and the benchmark harness (``repro_torch.bench.run``, whose
 ``kernels_micro`` launches every kernel, flash attention among them, with
@@ -24,7 +28,10 @@ the parity fixture, the paged engine's tokens against the dense decode path
 at full width (yi-6b and olmoe-1b-7b) and against the CPU on reduced yi-6b,
 the recurrent archs' forward against prefill and decode at full width, their
 tokens against the CPU's on reduced configs and their sequence mixers against
-the per-token forms, the traffic records and tokens against the CPU and the
+the per-token forms, the first training step's loss against the plain
+no-grad loss, reduced archs' training steps against the CPU's, the replayed
+steps' losses against the uninterrupted run's, the UM-backed trainer's
+charges and losses against the CPU's, the traffic records and tokens against the CPU and the
 node-loss tokens against the fault-free run, the harness's rows against the
 same modules on the CPU, times each kernel at its main-path shape, and
 prints:
@@ -154,8 +161,34 @@ WKV_SHAPE = (2, 512, 32, 64)  # check (iii): rwkv6's heads, B 2, S 512
 SCAN_SHAPE = (2, 512, 2560)   # check (iii): recurrentgemma's lru width
 RECURRENT_SCAN_TOL = 1e-4     # abs
 HELD_BYTES_MAX = 1 << 30  # what earlier phases may still hold before weights
-# the serving benchmarks run in the bench phase at their smoke sizes
-BENCH_SMOKE = {"LM_SERVE_SMOKE": "1", "FAULT_SMOKE": "1", "CLUSTER_SMOKE": "1"}
+# training at full width: yi-6b (d 4096, 32 over 4 heads of 128, d_ff
+# 11008, vocab 64000) cut from 32 to 12 layers, fp32 weights from a seed,
+# SyntheticLM batches of 2 x 2048 tokens in two microbatches, remat on, six
+# steps through Trainer (no checkpoint: checkpoints are held by the fault
+# check below)
+TRAIN = dict(arch="yi-6b", layers=12, params=2_600_570_880, seq_len=2048,
+             global_batch=2, seed=0, steps=6, lr=3e-4, warmup_steps=2,
+             total_steps=6, grad_accum=2)
+TRAIN_REF_RTOL = 1e-5   # step 1's loss vs a no-grad loss_fn, relative
+# the card against the CPU on reduced archs: the attention, MoE dispatch,
+# wkv and rglru-scan backward passes, 3 steps, two microbatches, remat
+TRAIN_CPU = dict(archs=("yi-6b", "olmoe-1b-7b", "rwkv6-1.6b",
+                        "recurrentgemma-2b"), steps=3, batch=4, seq_len=32,
+                 grad_accum=2, weights_seed=3)
+TRAIN_CPU_RTOL = 1e-4   # losses and grad norms relative; params of max |param|
+# where the CPU's sqrt(v_hat) >= 100 eps at every step (below it AdamW's
+# g / (|g| + eps) divides rounding, and a weight may move by up to lr)
+ADAMW_ILL = 1e-6
+# fault recovery: the train_100m example, a checkpoint every 25 steps and a
+# failure at step 40 (one restore from step 25, 15 steps replayed)
+TRAIN_FAULT = dict(steps=60, fail_at=40)
+# the UM-backed trainer at the paper-scale spec (103.8 M params)
+UMTRAIN = dict(spec="train_100m", cells=(("system", 1.0), ("system", 1.5),
+                                         ("managed", 1.5)), steps=3)
+UMTRAIN_LOSS_RTOL = 1e-5  # card vs CPU
+# the serving and training benchmarks run in the bench phase at smoke sizes
+BENCH_SMOKE = {"LM_SERVE_SMOKE": "1", "FAULT_SMOKE": "1", "CLUSTER_SMOKE": "1",
+               "TRAIN_SMOKE": "1"}
 BENCH_BY_NAME = ["repro_torch.bench.fault_serve",
                  "repro_torch.bench.cluster_scaling"]
 # a token of the paged engine may differ from the dense path's only where
@@ -1201,6 +1234,330 @@ def phase_recurrent() -> None:
              check_scan=recurrent_scan_check(arch, gen))
 
 
+def held_bytes_ok(what: str) -> int:
+    """Fail when earlier phases still hold over ``HELD_BYTES_MAX`` of device
+    memory; reset the peak. Returns the bytes held."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    check(before <= HELD_BYTES_MAX,
+          f"{before} bytes still held before {what}")
+    return before
+
+
+def train_flops(cfg, tokens: int, seq_len: int) -> float:
+    """Model FLOPs of one training step without the remat re-forward: 6 N T
+    over the matmul parameters (the embedding gather is not a product) plus
+    the attention products over the full S x S square the einsums compute
+    (QK^T and PV, forward and twice backward)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2
+                 + 3 * d * cfg.d_ff)
+    n_matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = 3 * 2 * 2 * seq_len * seq_len * cfg.num_heads * hd \
+        * cfg.num_layers * (tokens // seq_len)
+    return 6.0 * n_matmul * tokens + attn, n_matmul
+
+
+def phase_train() -> None:
+    """The LM trainer at full width: yi-6b cut to 12 layers, fp32 (TF32 off),
+    six steps through ``Trainer`` with two microbatches and remat; per step
+    the loss, grad norm, host-clock ms (the loss's read waits for the whole
+    step), tokens/s and model FLOP/s against the fp32 peak; the AdamW
+    update's CUDA-event ms against its byte bound; the peak device memory.
+    Checks: finite losses and grad norms, params that move, and step 1's
+    loss equal to a no-grad ``loss_fn`` over the same batch (the remat pass
+    against the plain one)."""
+    import dataclasses
+
+    import repro_torch.train.trainer as trainer_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataLoader, SyntheticLM
+    from repro_torch.models import RunPolicy, init_params
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train import (Trainer, TrainerConfig, make_train_state,
+                                   make_train_step)
+
+    before = held_bytes_ok("the full-width train state is made")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              num_layers=TRAIN["layers"])
+    B, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=TRAIN["seed"], device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == TRAIN["params"], f"yi-6b at 12 layers has {n_params}")
+    state = make_train_state(cfg, model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ds = SyntheticLM(cfg.vocab_size, S, B, seed=TRAIN["seed"])
+
+    # the step's loss on batch 0 by the plain pass: the mean of its two
+    # microbatches' losses, no grad, no remat
+    toks, labels = (torch.from_numpy(a).to("cuda") for a in ds.batch(0))
+    n = B // TRAIN["grad_accum"]
+    with torch.no_grad():
+        ref = sum(float(loss_fn(model, {"tokens": toks[i:i + n],
+                                        "labels": labels[i:i + n]})[0])
+                  for i in range(0, B, n)) / TRAIN["grad_accum"]
+    del toks, labels
+    watch = {name: p.detach()[:4].clone() for name, p in (
+        ("embed.w", model.embed.w), ("head.w", model.head.w),
+        ("layers.0.mixer.wq", model.layers[0].mixer.wq))}
+
+    tc = TrainerConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup_steps"],
+                       total_steps=TRAIN["total_steps"],
+                       grad_accum=TRAIN["grad_accum"])
+    step_fn = make_train_step(cfg, RunPolicy(remat=True), tc)
+    norms, adamw_events = [], []
+    adamw = trainer_mod.adamw_update
+
+    def timed_adamw(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = adamw(*a, **kw)
+        e1.record()
+        adamw_events.append((e0, e1))
+        return out
+
+    def recording_step(st, batch):
+        st, m = step_fn(st, batch)
+        norms.append(m["grad_norm"])
+        return st, m
+
+    loader = DataLoader(ds, device="cuda")
+    trainer_mod.adamw_update = timed_adamw
+    try:
+        torch.cuda.synchronize()
+        out = Trainer(cfg, state, recording_step, loader).run(TRAIN["steps"])
+        torch.cuda.synchronize()
+    finally:
+        trainer_mod.adamw_update = adamw
+        loader.close()
+    peak = torch.cuda.max_memory_allocated()
+    norms = [float(g) for g in norms]
+    adamw_ms = [e0.elapsed_time(e1) for e0, e1 in adamw_events]
+    moved = {k: float((p.detach()[:4] - watch[k]).abs().max())
+             for k, p in (("embed.w", model.embed.w), ("head.w", model.head.w),
+                          ("layers.0.mixer.wq", model.layers[0].mixer.wq))}
+    del state, model
+
+    losses = [h["loss"] for h in out["history"]]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train: losses {losses} or grad norms {norms} not finite")
+    check(all(v > 0 for v in moved.values()), f"train: params did not move {moved}")
+    err = abs(losses[0] - ref) / abs(ref)
+    check(err <= TRAIN_REF_RTOL,
+          f"train: step 1 loss {losses[0]} vs no-grad loss_fn {ref}")
+    tokens = B * S
+    flops, n_matmul = train_flops(cfg, tokens, S)
+    adamw_bytes = n_params * (16 + 12)  # read g, m, v, w; write m, v, w
+    steps = [{"step": h["step"], "loss": h["loss"], "grad_norm": g,
+              "ms": h["dt"] * 1e3, "tokens_per_s": tokens / h["dt"],
+              "model_tflop_per_s": flops / h["dt"] / 1e12,
+              "fp32_peak_share": flops / h["dt"] / FP32_FLOP_PER_S}
+             for h, g in zip(out["history"], norms)]
+    later = [x["ms"] for x in steps[1:]]
+    emit("train", arch=cfg.name, layers=cfg.num_layers, params=n_params,
+         matmul_params=n_matmul, dtype="float32",
+         tf32=torch.backends.cuda.matmul.allow_tf32, batch=B, seq_len=S,
+         grad_accum=TRAIN["grad_accum"], remat=True,
+         device_bytes_before_init=before, init_s=init_s,
+         model_tflop_per_step=flops / 1e12,
+         fp32_bound_ms=flops / FP32_FLOP_PER_S * 1e3, steps=steps,
+         step_ms_median_after_first=statistics.median(later),
+         adamw=dict(ms=adamw_ms, ms_median=statistics.median(adamw_ms),
+                    bytes=adamw_bytes, master_aliased=True,
+                    bound_ms=adamw_bytes / HBM_BYTES_PER_S * 1e3),
+         peak_device_bytes=peak, params_moved=moved,
+         check_step1=dict(loss=losses[0], no_grad_loss=ref, rel_err=err,
+                          tol=TRAIN_REF_RTOL))
+
+
+def _adamw_states_close(what: str, ref_states, states, lrs, b2=0.95,
+                        wd=0.1) -> dict:
+    """Two runs' per-step train states (numpy trees, the reference first):
+    every param within TRAIN_CPU_RTOL of max |param| where the reference's
+    sqrt(v_hat) >= ADAMW_ILL at every step so far, and within the AdamW
+    bound 2 (1 + wd) * sum(lr) elsewhere. Returns the largest errors and
+    the share of weights under the bound."""
+    from repro_torch.tree import flatten
+
+    ill, worst, worst_ill = {}, 0.0, 0.0
+    for t, (rs, st) in enumerate(zip(ref_states, states), 1):
+        rf, sf = flatten(rs), flatten(st)
+        scale = max(float(np.abs(v).max()) for k, v in rf.items()
+                    if k.startswith("params/"))
+        tol = TRAIN_CPU_RTOL * scale
+        for k, want in rf.items():
+            if not k.startswith("params/"):
+                continue
+            v_hat = rf["opt/v/" + k[7:]] / (1 - b2 ** t)
+            ill[k] = ill.get(k, False) | (np.sqrt(v_hat) < ADAMW_ILL)
+            d = np.abs(sf[k] - want)
+            worst = max(worst, float(d[~ill[k]].max(initial=0)) / scale)
+            worst_ill = max(worst_ill, float(d[ill[k]].max(initial=0)))
+            check(d[~ill[k]].max(initial=0) <= tol,
+                  f"{what}: step {t} {k} differs by "
+                  f"{d[~ill[k]].max(initial=0)} > {tol}")
+            check(d[ill[k]].max(initial=0) <= 2 * (1 + wd) * sum(lrs[:t]) + tol,
+                  f"{what}: step {t} {k} differs past the AdamW bound")
+    n_ill = sum(int(m.sum()) for m in ill.values())
+    n = sum(m.size for m in ill.values())
+    check(n_ill < 0.2 * n, f"{what}: {n_ill} of {n} weights ill-conditioned")
+    return dict(max_err_of_max_param=worst, max_err_ill=worst_ill,
+                ill_share=n_ill / n)
+
+
+def phase_train_card_vs_cpu() -> None:
+    """Reduced yi-6b, olmoe-1b-7b, rwkv6-1.6b and recurrentgemma-2b: one
+    numpy weight tree loaded on the card and on the CPU, the same
+    SyntheticLM batches, 3 steps of two microbatches with remat; losses and
+    grad norms within TRAIN_CPU_RTOL, params as ``_adamw_states_close``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import RunPolicy, load_jax_params, numpy_params
+    from repro_torch.models.convert import numpy_train_state
+    from repro_torch.train import TrainerConfig, make_train_state, make_train_step
+
+    held_bytes_ok("the reduced archs' weights are made")
+    out = {}
+    for arch in TRAIN_CPU["archs"]:
+        cfg = get_config(arch).reduced()
+        tree = numpy_params(cfg, TRAIN_CPU["weights_seed"])
+        ds = SyntheticLM(cfg.vocab_size, TRAIN_CPU["seq_len"],
+                         TRAIN_CPU["batch"], seed=1, mean_doc_len=8)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            state = make_train_state(cfg, load_jax_params(cfg, tree, dev))
+            step = make_train_step(cfg, RunPolicy(remat=True), TrainerConfig(
+                total_steps=10, warmup_steps=2,
+                grad_accum=TRAIN_CPU["grad_accum"]))
+            metrics, states = [], []
+            for i in range(TRAIN_CPU["steps"]):
+                toks, labels = (torch.from_numpy(a).to(dev)
+                                for a in ds.batch(i))
+                state, m = step(state, {"tokens": toks, "labels": labels})
+                metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                                float(m["lr"])))
+                states.append(numpy_train_state(state))
+            runs[dev] = (metrics, states)
+        (cm, cs), (gm, gs) = runs["cpu"], runs["cuda"]
+        for (cl, cg, _), (gl, gg, _) in zip(cm, gm):
+            check(abs(gl - cl) <= TRAIN_CPU_RTOL * abs(cl)
+                  and abs(gg - cg) <= TRAIN_CPU_RTOL * abs(cg),
+                  f"{arch}: card loss/grad norm {gl}/{gg} vs cpu {cl}/{cg}")
+        out[arch] = dict(losses_card=[m[0] for m in gm],
+                         losses_cpu=[m[0] for m in cm],
+                         grad_norms_card=[m[1] for m in gm],
+                         grad_norms_cpu=[m[1] for m in cm],
+                         **_adamw_states_close(arch, cs, gs,
+                                               [m[2] for m in cm]))
+    emit("train_card_vs_cpu", steps=TRAIN_CPU["steps"],
+         grad_accum=TRAIN_CPU["grad_accum"], remat=True, rtol=TRAIN_CPU_RTOL,
+         archs=out)
+
+
+def phase_train_fault() -> None:
+    """``python -m repro_torch.examples.train_100m`` on the card, without and
+    with a failure (checkpoints to a temporary directory): one restart, and
+    every replayed step's loss equal, bit for bit, to its first run and to
+    the uninterrupted run's; the example asserts that the loss improves."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.examples import train_100m
+
+    held_bytes_ok("train_100m's weights are made")
+    runs, t_run = {}, {}
+    for name, extra in (("plain", []),
+                        ("fail", ["--fail-at", str(TRAIN_FAULT["fail_at"])])):
+        with tempfile.TemporaryDirectory() as tmp:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                runs[name] = train_100m.main(
+                    ["--steps", str(TRAIN_FAULT["steps"]), "--ckpt-dir", tmp]
+                    + extra)
+            t_run[name] = time.perf_counter() - t0
+    plain = {h["step"]: h["loss"] for h in runs["plain"]["history"]}
+    check(runs["fail"]["restarts"] == 1,
+          f"train_100m restarted {runs['fail']['restarts']} times")
+    seen, replayed = {}, 0
+    for h in runs["fail"]["history"]:
+        if h["step"] in seen:
+            replayed += 1
+            check(h["loss"] == seen[h["step"]],
+                  f"train_100m: replayed step {h['step']} loss {h['loss']} "
+                  f"!= {seen[h['step']]}")
+        seen[h["step"]] = h["loss"]
+    # the failed run spends part of its step budget on the replay, so it
+    # ends earlier: compare the steps both ran
+    differ = [k for k in seen if seen[k] != plain[k]]
+    check(not differ and max(seen) >= TRAIN_FAULT["fail_at"],
+          f"train_100m: the failed run's losses at steps {differ} differ "
+          "from the uninterrupted run's")
+    losses = [h["loss"] for h in runs["plain"]["history"]]
+    emit("train_fault", steps=TRAIN_FAULT["steps"], fail_at=TRAIN_FAULT["fail_at"],
+         ckpt_every=train_100m.CKPT_EVERY, restarts=runs["fail"]["restarts"],
+         replayed_steps=replayed, replay_bit_equal=True,
+         first_loss=losses[0], last_loss=losses[-1], wall_s=t_run,
+         deterministic_algorithms=torch.are_deterministic_algorithms_enabled())
+
+
+def phase_umtrain() -> None:
+    """``UMTrainer("train_100m")`` on the card under system x1.0, system x1.5
+    and managed x1.5, 3 steps each, and the same on the CPU: the card's
+    losses bit-identical across the three; the modeled clock, traffic and
+    eff_ratio equal the CPU's bit for bit; the losses within
+    UMTRAIN_LOSS_RTOL of the CPU's. Wall ms a step on the card."""
+    from repro_torch.train import UMTrainer
+
+    held_bytes_ok("the UM-backed trainer's state is made")
+    rows = []
+    for policy, ratio in UMTRAIN["cells"]:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            tr = UMTrainer(UMTRAIN["spec"], policy=policy, ratio=ratio,
+                           device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.run(UMTRAIN["steps"])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rep = tr.um.prof.report()
+            res[dev] = dict(losses=out["losses"], clock=tr.um.clock,
+                            traffic=rep["traffic_total"],
+                            eff_ratio=out["eff_ratio"],
+                            wall_ms_per_step=wall / UMTRAIN["steps"] * 1e3)
+            tr.close()
+        card, cpu = res["cuda"], res["cpu"]
+        for k in ("clock", "traffic", "eff_ratio"):
+            check(card[k] == cpu[k], f"umtrain {policy} x{ratio}: {k} "
+                  f"{card[k]} on the card != {cpu[k]} on the cpu")
+        check(all(abs(a - b) <= UMTRAIN_LOSS_RTOL * abs(b)
+                  for a, b in zip(card["losses"], cpu["losses"])),
+              f"umtrain {policy} x{ratio}: losses {card['losses']} vs "
+              f"{cpu['losses']}")
+        rows.append(dict(policy=policy, ratio=ratio, losses=card["losses"],
+                         losses_cpu=cpu["losses"], modeled_clock_s=card["clock"],
+                         eff_ratio=card["eff_ratio"],
+                         migrated_out=card["traffic"]["migrated_out"],
+                         wall_ms_per_step=card["wall_ms_per_step"],
+                         wall_ms_per_step_cpu=cpu["wall_ms_per_step"]))
+    check(all(r["losses"] == rows[0]["losses"] for r in rows),
+          "umtrain: the card's losses differ across policies and ratios")
+    emit("umtrain", spec=UMTRAIN["spec"], steps=UMTRAIN["steps"],
+         charges_equal_cpu=True, losses_equal_across_cells=True, cells=rows)
+
+
 def record_margins(sim) -> tuple:
     """Wrap every engine of ``sim`` so that it records, for the i-th token
     of each request, (top-2 logit margin, max |logit|, least router gap):
@@ -1459,12 +1816,15 @@ def phase_bench() -> dict:
     serving = [k for k in figures
                if k.split("/")[0] in ("lm_serve", "fault", "cluster")]
     check(serving, "the serving benchmarks printed no rows")
+    training = [k for k in figures if k.startswith("train/")]
+    check(len(training) == 12, f"train_oversub printed {training}")
     snapshots = sorted(p.name for p in (json_dir / "card").glob("*.json"))
     check(snapshots == ["BENCH_cluster.json", "BENCH_fault.json",
-                        "BENCH_lmserve.json"],
+                        "BENCH_lmserve.json", "BENCH_train.json"],
           f"the serving benchmarks wrote {snapshots}")
     emit("bench", modules=MODULES + BENCH_BY_NAME, env=BENCH_SMOKE,
          wall_s=wall, figure_rows=len(figures), serving_rows=len(serving),
+         training_rows=len(training),
          rows_equal_cpu=True, json=snapshots, launches=launches,
          kernels_micro_us_on_card={k: (float(us), d)
                                    for k, (us, d) in micro.items()})
@@ -1654,6 +2014,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu()
     phase_recurrent()
+    counters = zero_counters()  # the training paths launch none of the four
+    phase_train()
+    phase_train_card_vs_cpu()
+    phase_train_fault()
+    phase_umtrain()
+    launches_in_training = {k: fn.launches for k, fn in counters.items()}
+    check(not any(launches_in_training.values()),
+          f"the training phases launched {launches_in_training}")
     launches["paged_attention"] += phase_traffic()["paged_attention"]
     launches["flash_attention"] = phase_bench()["flash_attention"]
     times = phase_timing(paged_args)

@@ -1,5 +1,5 @@
 """Benchmark harness of the port: one module per paper figure plus
-``kernels_micro`` and ``lm_serve_paged``. CSV to stdout.
+``kernels_micro``, ``lm_serve_paged`` and ``train_oversub``. CSV to stdout.
 
     python -m repro_torch.bench.run [--device cpu] [--jobs N]
         [--policy NAME] [--hw NAME] [--json [DIR]] [modules]
@@ -46,6 +46,7 @@ MODULES = [
     "repro_torch.bench.fig1213_prefetch",
     "repro_torch.bench.kernels_micro",
     "repro_torch.bench.lm_serve_paged",
+    "repro_torch.bench.train_oversub",
 ]
 
 

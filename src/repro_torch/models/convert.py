@@ -10,6 +10,11 @@ layer's mixer hold their own parameters (``models/rwkv.py``,
 ``models/rglru.py``), and a tied-embedding arch has no ``head``. Its paths
 are the module's parameter names, so the load is name for name and shape
 for shape.
+
+The whole train state crosses too: :func:`load_jax_train_state` takes a
+numpy JAX train state (``make_train_state``'s tree: params, the AdamW
+``m``/``v``/``master`` and ``count``, ``step``) to the port's
+``train.TrainState``, and :func:`numpy_train_state` takes the port's back.
 """
 from __future__ import annotations
 
@@ -167,3 +172,25 @@ def numpy_params(cfg, seed: int, *, tp: int = 1) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         tree["head"] = {"w": dense((d, V), d)}
     return tree
+
+
+def load_jax_train_state(cfg, tree: Dict[str, Any], device=None, *,
+                         tp: int = 1):
+    """The port's train state (``train.TrainState``) holding the values of
+    the JAX train state ``tree`` (numpy leaves), on ``device`` (the CUDA
+    card unless the caller passes ``device="cpu"``)."""
+    from repro_torch.train.trainer import load_state_, make_train_state
+
+    model = load_jax_params(cfg, tree["params"], device, tp=tp)
+    state = make_train_state(cfg, model)
+    load_state_(state, {k: tree[k] for k in state})
+    return state
+
+
+def numpy_train_state(state) -> Dict[str, Any]:
+    """The port's train state as the JAX package's tree of numpy arrays
+    (``count`` and ``step`` int32 scalars; ``master`` its own copy)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(),
+                    dict(state))

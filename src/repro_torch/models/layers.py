@@ -23,8 +23,11 @@ class RunPolicy:
     route with ``moe_capacity_factor`` through ``moe_impl``: ``"dense"``
     (GShard dispatch einsums) or ``"sorted"`` (scatter dispatch). rwkv6's
     wkv runs in chunks of ``rwkv_chunk`` tokens (halved until it divides the
-    sequence)."""
+    sequence). ``remat`` recomputes each block's activations in the
+    backward pass of a training forward (``torch.utils.checkpoint``, the
+    JAX package's ``jax.checkpoint``) instead of keeping them."""
 
+    remat: bool = False
     attn_q_block: int = 0  # 0 => unblocked attention
     attn_kv_block: int = 0
     rwkv_chunk: int = 128

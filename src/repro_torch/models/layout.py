@@ -87,6 +87,17 @@ class HeadLayout:
             return src.astype(np.int64)
         return np.repeat(np.arange(self.n_kv, dtype=np.int64), self.rep)
 
+    def q_pad_mask(self) -> np.ndarray:
+        """bool (n_q_eff,): True where the eff q head is structural padding."""
+        return self.q_src() < 0
+
+    def kv_pad_mask(self) -> np.ndarray:
+        """bool (n_kv_eff,): True for padded MHA kv heads (grads masked)."""
+        out = np.zeros(self.n_kv_eff, bool)
+        if self.pad:
+            out[self.n_kv:] = True
+        return out
+
     # -- weight expansion -----------------------------------------------------
     def expand_q(self, w: torch.Tensor, head_axis: int) -> torch.Tensor:
         """Expand an (..., n_q, ...) tensor to eff layout, zero-filling pads."""

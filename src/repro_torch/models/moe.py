@@ -190,5 +190,7 @@ class MoE(nn.Module):
             part = w[:, :E0] if name == "router" else w[:E0]
             part.copy_(dense_init(gen, shape, w.dtype, in_axis_size=fan_in))
 
-    def forward(self, x, policy: RunPolicy):
-        return moe_apply(self.cfg, self.params(), x, policy, tp=self.tp)[0]
+    def forward(self, x, policy: RunPolicy, with_aux: bool = False):
+        """y, or (y, the load-balance loss) with ``with_aux``."""
+        y, aux = moe_apply(self.cfg, self.params(), x, policy, tp=self.tp)
+        return (y, aux) if with_aux else y

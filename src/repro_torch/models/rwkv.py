@@ -10,7 +10,8 @@ chunkwise-parallel form the model runs. Every pairwise decay exponent is a
 difference of cumulative sums with s <= t, hence <= 0, so ``exp`` never
 overflows. Chunks advance one at a time in a Python loop, as ``lax.scan``
 advances them in the JAX package: a chunk's (B, H, C, C, K) decay tensor
-is 1.07 GB at rwkv6-1.6b's width for B = 8, C = 128, so only one is live.
+is 1.07 GB at rwkv6-1.6b's width for B = 8, C = 128, so only one is live
+(built in place, except where autograd records the pass).
 The reference has no Pallas kernel here; this is plain torch, as the JAX
 package computes it outside any ``pallas_call``.
 """
@@ -81,7 +82,10 @@ def wkv6_chunked(r, k, v, wlog, u, s0, chunk: int):
         lc, pe = lcum[:, i], pexc[:, i]
         # intra-chunk pairwise decay exp(P[t] - Lcum[s]) for s < t, <= 0
         E = pe[:, :, :, None, :] - lc[:, :, None, :, :]  # (B,H,C,C,K)
-        E.exp_().mul_(rt[:, :, :, None, :]).mul_(kt[:, :, None, :, :])
+        if torch.is_grad_enabled():  # autograd keeps exp's output
+            E = torch.exp(E) * rt[:, :, :, None, :] * kt[:, :, None, :, :]
+        else:  # one (B,H,C,C,K) tensor live, not three
+            E.exp_().mul_(rt[:, :, :, None, :]).mul_(kt[:, :, None, :, :])
         A = E.sum(-1) * tri
         del E
         bonus = (rt * uf[None, :, None, :] * kt).sum(-1)  # (B,H,C)

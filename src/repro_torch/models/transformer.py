@@ -10,24 +10,30 @@ ffn is :class:`~repro_torch.models.rwkv.RwkvChannelMix` for ``rwkv6``, a
 parameters carry the JAX tree's keys (``layers.<i>.mixer.wq``,
 ``layers.<i>.mixer.lambda``, ``layers.<i>.ffn.w_gate``,
 ``layers.<i>.norm1.scale``, ``final_norm.scale``, ``embed.w``, ``head.w``),
-so ``models/convert.py`` maps one onto the other name for name.
+so ``models/convert.py`` maps one onto the other name for name, and
+:meth:`TransformerLM.params_tree` presents them as the JAX tree.
 ``forward``, ``prefill`` and ``decode_step`` run under
-``torch.inference_mode()``.
+``torch.inference_mode()``; training runs :meth:`TransformerLM.forward_train`
+through :func:`loss_fn` (the parameters take grads once
+``train.make_train_state`` enables them), with :func:`grad_mask` and
+:func:`sync_replica_grads` keeping a padded TP head layout exact.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.cache import kv_head_layout
 from repro_torch.models.layers import MLP, Norm, RunPolicy, dense_init, sinusoidal_table
-from repro_torch.models.moe import MoE
+from repro_torch.models.moe import MoE, num_experts_eff
 from repro_torch.models.rglru import RgLru
 from repro_torch.models.rwkv import RwkvChannelMix, RwkvTimeMix
+from repro_torch.tree import leaves, tree_map
 
 
 class _Weight(nn.Module):
@@ -89,6 +95,25 @@ class Block(nn.Module):
             y = self.ffn(h, policy)
         return x + y, cache
 
+    def forward_train(self, x, policy: RunPolicy, positions):
+        """x (B,S,d) -> (x, this block's MoE load-balance loss, 0 for other
+        ffns) with no decode cache (``_block_apply``)."""
+        h = self.norm1(x)
+        if self.kind in ("rwkv6", "rglru"):
+            mixed, _ = self.mixer(h, policy)
+        else:
+            mixed, _ = self.mixer(h, policy, positions, window=self.window)
+        x = x + mixed
+        h = self.norm2(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.kind == "rwkv6":
+            y, _ = self.ffn(h)
+        elif isinstance(self.ffn, MoE):
+            y, aux = self.ffn(h, policy, with_aux=True)
+        else:
+            y = self.ffn(h, policy)
+        return x + y, aux
+
     def decode(self, x, pos, cache, policy: RunPolicy):
         """One token x (B,1,d) at positions pos (B,) -> (x, the updated
         cache); attention caches are written in place."""
@@ -140,6 +165,12 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device
+
+    def params_tree(self) -> Dict[str, Any]:
+        """The parameters as the JAX package's tree: ``layers.0.mixer.wq``
+        at ``["layers"][0]["mixer"]["wq"]``; the leaves are the module's own
+        parameters."""
+        return _tree_of(self)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -200,6 +231,26 @@ class TransformerLM(nn.Module):
         x = self.final_norm(x)
         return self.logits_out(x[:, -1:] if last_only else x), caches
 
+    def forward_train(self, tokens, policy: Optional[RunPolicy] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full-sequence pass of training (``forward``): fp32 logits
+        (B,S,V) and the summed MoE load-balance loss, with grad enabled and
+        no decode caches. With ``policy.remat`` each block's activations are
+        recomputed in the backward pass instead of kept."""
+        policy = policy or RunPolicy()
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        x = self.embed_in(tokens, positions)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.layers:
+            if policy.remat and torch.is_grad_enabled():
+                x, aux = checkpoint(blk.forward_train, x, policy, positions,
+                                    use_reentrant=False)
+            else:
+                x, aux = blk.forward_train(x, policy, positions)
+            aux_total = aux_total + aux
+        return self.logits_out(self.final_norm(x)), aux_total
+
     @torch.inference_mode()
     def decode_step(self, tokens, pos, cache: List[Dict[str, torch.Tensor]],
                     policy: Optional[RunPolicy] = None):
@@ -223,6 +274,14 @@ class TransformerLM(nn.Module):
         return self.logits_out(self.final_norm(x)), new_cache
 
 
+def _tree_of(module: nn.Module):
+    if isinstance(module, nn.ModuleList):
+        return [_tree_of(m) for m in module]
+    tree: Dict[str, Any] = dict(module.named_parameters(recurse=False))
+    tree.update((name, _tree_of(m)) for name, m in module.named_children())
+    return tree
+
+
 def init_params(cfg, generator: Optional[torch.Generator] = None, *,
                 seed: int = 0, dtype: torch.dtype = torch.float32, tp: int = 1,
                 device=None) -> TransformerLM:
@@ -235,3 +294,77 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, *,
     model = TransformerLM(cfg, tp=tp, dtype=dtype, device=dev)
     model.reset_parameters(generator)
     return model
+
+
+def loss_fn(model: TransformerLM, batch: Dict[str, torch.Tensor],
+            policy: Optional[RunPolicy] = None):
+    """Next-token cross-entropy over the labels >= 0 (the data pipeline
+    shifts them and marks document joints -1), plus 0.01 * the MoE
+    load-balance loss / the layer count. Returns (loss, {'ce', 'aux'})."""
+    logits, aux = model.forward_train(batch["tokens"], policy)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = ce + 0.01 * aux / max(1, model.cfg.num_layers)
+    return loss, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Exactness hooks for the padded TP head layout (see models/layout.py)
+# ---------------------------------------------------------------------------
+
+
+def grad_mask(cfg, params, tp: int):
+    """A tree of ``params``' structure: a 0/1 mask broadcasting against the
+    parameter where it holds structural padding (padded q heads; padded MHA
+    kv heads; padded experts), None where every entry is real."""
+    mask = tree_map(lambda p: None, params)
+    if cfg.mixer == "rwkv6":
+        return mask
+    lay = kv_head_layout(cfg, tp)
+    dev = leaves(params)[0].device
+    qpad, kpad = lay.q_pad_mask(), lay.kv_pad_mask()
+    qm = torch.as_tensor(~qpad, dtype=torch.float32, device=dev)
+    km = torch.as_tensor(~kpad, dtype=torch.float32, device=dev)
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind not in ("attention", "local"):
+            continue
+        m = mask["layers"][i]["mixer"]
+        if qpad.any():
+            m["wq"] = qm[None, :, None]
+            m["wo"] = qm[:, None, None]
+            if cfg.qkv_bias:
+                m["bq"] = qm[:, None]
+        if lay.pad:
+            m["wk"] = m["wv"] = km[None, :, None]
+            if cfg.qkv_bias:
+                m["bk"] = m["bv"] = km[:, None]
+    if cfg.is_moe and num_experts_eff(cfg, tp) != cfg.num_experts:
+        em = (torch.arange(num_experts_eff(cfg, tp), device=dev)
+              < cfg.num_experts).float()
+        for f in (mask["layers"][i]["ffn"] for i in range(cfg.num_layers)):
+            f["router"] = em[None, :]
+            for name in ("w_gate", "w_up", "w_down"):
+                f[name] = em[:, None, None]
+    return mask
+
+
+@torch.no_grad()
+def sync_replica_grads(cfg, grads, tp: int):
+    """Sum the KV-projection grads across a layout's replicas and give each
+    replica the sum (keeps replicas identical), in place. Returns grads."""
+    if cfg.mixer == "rwkv6":
+        return grads
+    lay = kv_head_layout(cfg, tp)
+    if lay.rep == 1:
+        return grads
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind not in ("attention", "local"):
+            continue
+        g = grads["layers"][i]["mixer"]
+        for name, axis in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+            if name in g:
+                g[name].copy_(lay.reduce_kv_grad(g[name], axis))
+    return grads

@@ -54,11 +54,13 @@ def test_kernels_micro_rows_match_jax():
 
 
 def test_modules_are_the_eight_figure_and_kernel_modules():
-    # the eight, then the serving benchmark, as in benchmarks/run.py
+    # the eight, then the serving and training benchmarks, in the order of
+    # benchmarks/run.py (lm_roofline comes with the launch slice;
+    # sim_throughput runs only the charge model and is not ported)
     assert [m.rsplit(".", 1)[1] for m in bench_run.MODULES] == [
         "fig3_overview", "fig45_timeline", "fig67_pagesize", "fig89_qiskit",
         "fig10_srad_migration", "fig11_oversub", "fig1213_prefetch",
-        "kernels_micro", "lm_serve_paged"]
+        "kernels_micro", "lm_serve_paged", "train_oversub"]
     for m in bench_run.MODULES:
         assert "device" in importlib.import_module(m).run.__code__.co_varnames
 

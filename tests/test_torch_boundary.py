@@ -28,14 +28,20 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.qv_gate import apply_two_qubit_gate
 from repro_torch.kernels.stencil5 import stencil5
 from repro_torch.launch import serve as launch_serve
+from repro_torch.data import DataLoader, SyntheticLM
 from repro_torch.examples import (
     buffer_api,
     qv_oversubscription,
+    quickstart,
     serve_batched,
     trace_replay,
+    train_100m,
 )
-from repro_torch.models import init_cache, init_params
+from repro_torch.models import init_cache, init_params, numpy_params
+from repro_torch.models.convert import load_jax_train_state
+from repro_torch.runtime import reshard_tree
 from repro_torch.serve import ServeEngine, TrafficSim, get_scenario
+from repro_torch.train import UMTrainer
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -63,7 +69,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core.trace, repro_torch.examples.trace_replay, "
             "repro_torch.examples.buffer_api, "
             "repro_torch.examples.qv_oversubscription, "
-            "repro_torch.examples.serve_batched; "
+            "repro_torch.examples.serve_batched, repro_torch.optim, "
+            "repro_torch.data, repro_torch.checkpoint, repro_torch.train, "
+            "repro_torch.runtime.straggler, repro_torch.runtime.elastic, "
+            "repro_torch.bench.train_oversub, repro_torch.examples.train_100m, "
+            "repro_torch.examples.quickstart; "
             "[__import__(m) for m in repro_torch.bench.run.MODULES]; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -79,6 +89,11 @@ def test_import_leaves_jax_and_repro_out():
     assert "repro_torch.cluster.policy" in mods
     assert "repro_torch.models.rwkv" in mods
     assert "repro_torch.models.rglru" in mods
+    for m in ("optim.adamw", "optim.compression", "optim.schedule",
+              "data.pipeline", "checkpoint.manager", "train.trainer",
+              "train.offload", "train.umtrain", "runtime.straggler",
+              "runtime.elastic", "bench.train_oversub"):
+        assert f"repro_torch.{m}" in mods
     assert [m for m in mods if _banned(m)] == []
 
 
@@ -126,13 +141,28 @@ def test_recurrent_entry_points_default_to_the_card(arch, monkeypatch):
 
 
 @pytest.mark.parametrize("example", [trace_replay, buffer_api,
-                                     qv_oversubscription, serve_batched],
+                                     qv_oversubscription, serve_batched,
+                                     quickstart, train_100m],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_examples_default_to_the_card(example, monkeypatch, tmp_path):
     _no_card(monkeypatch)
     argv = ["--trace", str(tmp_path / "t.trace")] if example is trace_replay else []
     with pytest.raises(RuntimeError, match="no CUDA device"):
         example.main(argv)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: DataLoader(SyntheticLM(256, 8, 2)),
+    lambda: UMTrainer("train_tiny"),
+    lambda: reshard_tree({"w": torch.zeros(2)}),
+    lambda: load_jax_train_state(
+        get_config("yi-6b").reduced(),
+        {"params": numpy_params(get_config("yi-6b").reduced(), 0)}),
+], ids=["DataLoader", "UMTrainer", "reshard_tree", "load_jax_train_state"])
+def test_training_entry_points_default_to_the_card(entry, monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
 
 
 def _micro_sim(**kw):
