@@ -18,7 +18,11 @@ recurrentgemma-2b (8 prompts of 2304 tokens each through ``prefill`` and
 to 12 layers through ``make_train_step``/``Trainer``; the
 ``train_100m`` example through a failure and its restore; the UM-backed
 ``UMTrainer`` at the paper-scale spec; none of them launches a kernel), the
-traffic harness (the burst
+launch layer (``repro_torch.launch.train`` on an NCCL world of one rank
+against ``make_train_step``; a data 2 x model 2 world of four processes
+sharing the card over gloo against the one-rank step, with the int8 TP
+all-reduce; full-width yi-6b decode from an int8 KV cache against the fp
+cache; no kernel either), the traffic harness (the burst
 preset over the reduced configs, and a node loss on the two-superchip
 cluster pool), and the benchmark harness (``repro_torch.bench.run``, whose
 ``kernels_micro`` launches every kernel, flash attention among them, with
@@ -186,6 +190,29 @@ TRAIN_FAULT = dict(steps=60, fail_at=40)
 UMTRAIN = dict(spec="train_100m", cells=(("system", 1.0), ("system", 1.5),
                                          ("managed", 1.5)), steps=3)
 UMTRAIN_LOSS_RTOL = 1e-5  # card vs CPU
+# the launch layer: (i) python -m repro_torch.launch.train in-process on an
+# NCCL world of one rank (mesh 1 x 1) at phase train's width, depth and
+# batch, against make_train_step on the same state and batches; (ii) a
+# data 2 x model 2 world of 4 processes sharing the card over gloo (reduced
+# archs, two microbatches) against the one-rank card step, and the int8 TP
+# all-reduce on CUDA tensors against the CPU's; (iii) full-width yi-6b
+# decode from an int8 KV cache against the fp cache, teacher-forced on the
+# fp run's greedy tokens
+LAUNCH_FULL = dict(steps=2, batch=2, accum=2, seq=2048, layers=12, seed=0)
+LAUNCH_RANKS = dict(data=2, model=2, archs=TRAIN_CPU["archs"], steps=2,
+                    batch=4, seq_len=32, grad_accum=2, weights_seed=3)
+LAUNCH_RTOL = TRAIN_CPU_RTOL  # losses, grad norms relative; params of max |param|
+KV_INT8 = dict(arch="yi-6b", batch=8, prompt_len=922, new_tokens=32, seed=0)
+KV_INT8_SOFTMAX_ATOL = 0.05  # tests/test_model_consistency.py's tolerance
+# At full width and random weights no probability is far above 1/vocab, so
+# the softmax bound alone passes any cache short of a blow-up. The logits
+# must also stay within four int8 steps (4/127) of max |logit| of the fp
+# cache's (the int8 cache reads 2.0 steps on the H100, corrupted caches
+# 77-97), and the greedy tokens agree at this share or more (0.977; the
+# corrupted 0.16-0.33); a cache with each token's scales taken from its
+# neighbour, or K's and V's scales swapped, must fail one of the three.
+KV_INT8_LOGIT_RTOL = 4.0 / 127
+KV_INT8_AGREE_MIN = 0.9
 # the serving and training benchmarks run in the bench phase at smoke sizes
 BENCH_SMOKE = {"LM_SERVE_SMOKE": "1", "FAULT_SMOKE": "1", "CLUSTER_SMOKE": "1",
                "TRAIN_SMOKE": "1"}
@@ -1558,6 +1585,341 @@ def phase_umtrain() -> None:
          charges_equal_cpu=True, losses_equal_across_cells=True, cells=rows)
 
 
+def _launch_ranks_worker(rank: int, port: int, out: str) -> None:
+    """One rank of phase launch's data 2 x model 2 world on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import end_world, make_host_mesh, start_world
+    from repro_torch.launch.sharding import (gather_tree, make_run_policy,
+                                             shard_model_)
+    from repro_torch.models import load_jax_params, numpy_params
+    from repro_torch.models.parallel import HOST_STAGED, Axis
+    from repro_torch.models.qcomm import quantized_allreduce
+    from repro_torch.train import TrainerConfig, make_train_state, make_train_step
+    from repro_torch.tree import flatten
+
+    L = LAUNCH_RANKS
+    torch.cuda.set_device(0)
+    start_world(rank, L["data"] * L["model"], backend="gloo", port=port)
+    try:
+        mesh = make_host_mesh(L["data"], L["model"])
+        res = {}
+        for arch in L["archs"]:
+            cfg = get_config(arch).reduced()
+            model = load_jax_params(cfg, numpy_params(cfg, L["weights_seed"],
+                                                      tp=L["model"]),
+                                    "cuda", tp=L["model"])
+            shard_model_(model, mesh)
+            state = make_train_state(cfg, model)
+            step = make_train_step(cfg, make_run_policy(mesh, remat=True),
+                                   TrainerConfig(total_steps=10, warmup_steps=2,
+                                                 grad_accum=L["grad_accum"],
+                                                 tp=L["model"]))
+            ds = SyntheticLM(cfg.vocab_size, L["seq_len"], L["batch"], seed=1,
+                             mean_doc_len=8)
+            metrics, params = [], []
+            for i in range(L["steps"]):
+                toks, labels = (torch.from_numpy(a).cuda() for a in ds.batch(i))
+                state, m = step(state, {"tokens": toks, "labels": labels})
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                full = gather_tree(state["params"], model.param_specs, mesh)
+                params.append({k: v.cpu().numpy().copy()
+                               for k, v in flatten(full).items()})
+            res[arch] = (metrics, params)
+        # the int8 TP all-reduce over the world, on the card and on the CPU
+        n = dist.get_world_size()
+        y = np.random.default_rng(7).standard_normal(
+            (n, 2, 16, 1024)).astype(np.float32)[rank]
+        ax = Axis(dist.group.WORLD, n, rank)
+        q_card = quantized_allreduce(torch.from_numpy(y).cuda(), ax).cpu().numpy()
+        q_cpu = quantized_allreduce(torch.from_numpy(y), ax).numpy()
+        if rank == 0:
+            torch.save({"archs": res, "q_card": q_card, "q_cpu": q_cpu,
+                        "host_staged": dict(HOST_STAGED)}, out)
+    finally:
+        end_world()
+
+
+def phase_launch() -> None:
+    """The launch layer on the card: launch_full, launch_ranks and kv_int8
+    (see LAUNCH_FULL, LAUNCH_RANKS and KV_INT8). Every number is printed
+    with the card's name and power limit."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    launch_full(smi)
+    launch_ranks(smi)
+    kv_int8(smi)
+
+
+def launch_full(smi: str) -> None:
+    """``repro_torch.launch.train.main`` in-process (NCCL, one rank, mesh
+    1 x 1) against ``make_train_step`` with the same TrainerConfig on the
+    same initial state and batches: step 1's loss bit-equal, step 2's loss
+    within LAUNCH_RTOL and the params as phase train_card_vs_cpu holds them
+    (LAUNCH_RTOL of max |param| where the reference's sqrt(v_hat) >=
+    ADAMW_ILL at both steps, the AdamW bound elsewhere)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import RunPolicy, init_params
+    from repro_torch.train import TrainerConfig, make_train_state, make_train_step
+    from repro_torch.tree import flatten
+
+    F_ = LAUNCH_FULL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    held_bytes_ok("launch_full's reference state is made")
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=F_["layers"])
+    model = init_params(cfg, seed=F_["seed"], dtype=torch.float32, device="cuda")
+    state = make_train_state(cfg, model)
+    tc = TrainerConfig(lr=3e-4, total_steps=F_["steps"],
+                       warmup_steps=max(1, F_["steps"] // 10),
+                       grad_accum=F_["accum"])
+    step = make_train_step(cfg, RunPolicy(remat=True), tc)
+    ds = SyntheticLM(cfg.vocab_size, F_["seq"], F_["batch"], seed=F_["seed"])
+    ref_losses, ref_ms, ill, lrs = [], [], {}, []
+    b2 = 0.95
+    for i in range(F_["steps"]):
+        toks, labels = (torch.from_numpy(a).cuda() for a in ds.batch(i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": toks, "labels": labels})
+        ref_losses.append(float(m["loss"]))
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+        lrs.append(float(m["lr"]))
+        with torch.no_grad():
+            for k, v in flatten(state["opt"]["v"]).items():
+                bad = (v / (1 - b2 ** (i + 1))).sqrt_() < ADAMW_ILL
+                ill[k] = bad if k not in ill else ill[k] | bad
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_params = {k: p.detach().cpu() for k, p in flatten(state["params"]).items()}
+    ill = {k: v.cpu() for k, v in ill.items()}
+    del state, model, step, m, toks, labels
+    held_bytes_ok("launch.train's state is made")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = launch_train.main(
+            ["--arch", "yi-6b", "--layers", str(F_["layers"]),
+             "--steps", str(F_["steps"]), "--batch", str(F_["batch"]),
+             "--accum", str(F_["accum"]), "--seq", str(F_["seq"]),
+             "--seed", str(F_["seed"]), "--device", "cuda"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in out["history"]]
+    check(losses[0] == ref_losses[0],
+          f"launch_full: step 1 loss {losses[0]} != make_train_step's "
+          f"{ref_losses[0]}")
+    check(abs(losses[1] - ref_losses[1]) <= LAUNCH_RTOL * abs(ref_losses[1]),
+          f"launch_full: step 2 loss {losses[1]} vs {ref_losses[1]}")
+    got = flatten(out["state"]["params"])
+    scale = max(float(p.abs().max()) for p in ref_params.values())
+    worst = worst_ill = 0.0
+    n_ill = n = 0
+    for k, want in ref_params.items():
+        d = (got[k].detach() - want.cuda()).abs()
+        bad = ill[k].cuda()
+        ok_err = float(d[~bad].max()) if (~bad).any() else 0.0
+        ill_err = float(d[bad].max()) if bad.any() else 0.0
+        check(ok_err <= LAUNCH_RTOL * scale,
+              f"launch_full: {k} differs by {ok_err} > {LAUNCH_RTOL * scale}")
+        check(ill_err <= 2 * 1.1 * sum(lrs) + LAUNCH_RTOL * scale,
+              f"launch_full: {k} differs past the AdamW bound")
+        worst, worst_ill = max(worst, ok_err / scale), max(worst_ill, ill_err)
+        n_ill, n = n_ill + int(bad.sum()), n + bad.numel()
+    # no bound on the ill share here: at full width most embedding rows see
+    # no token in 4096 and keep v = 0 (both runs move them by decay alone)
+    emit("launch_full", card=smi, arch="yi-6b", layers=F_["layers"],
+         backend=out["backend"], world=1, mesh="1x1", batch=F_["batch"],
+         grad_accum=F_["accum"], seq_len=F_["seq"], losses=losses,
+         losses_make_train_step=ref_losses, step1_bit_equal=True,
+         step_ms=[h["dt"] * 1e3 for h in out["history"]],
+         step_ms_make_train_step=ref_ms, peak_device_gb=peak / 1e9,
+         peak_device_gb_make_train_step=ref_peak / 1e9,
+         max_param_err_of_max_param=worst, max_err_ill=worst_ill,
+         ill_share=n_ill / n, summary=buf.getvalue().strip())
+    del out, got
+
+
+def launch_ranks(smi: str) -> None:
+    """A data 2 x model 2 world of 4 processes on cuda:0 over gloo (every
+    collective's CUDA tensors staged through the host): each reduced arch
+    two steps of two microbatches against the one-rank card step on the
+    same weights and batches (losses and grad norms within LAUNCH_RTOL,
+    params as ``_adamw_states_close`` at LAUNCH_RTOL); the int8 TP
+    all-reduce on CUDA tensors within one quantization step of the CPU's."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import free_port
+    from repro_torch.models import RunPolicy, load_jax_params, numpy_params
+    from repro_torch.models.convert import numpy_train_state
+    from repro_torch.train import TrainerConfig, make_train_state, make_train_step
+
+    L = LAUNCH_RANKS
+    held_bytes_ok("launch_ranks' world starts")
+    world = L["data"] * L["model"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ranks.pt")
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_launch_ranks_worker, nprocs=world,
+                                    args=(free_port(), path))
+        wall = time.perf_counter() - t0
+        res = torch.load(path, weights_only=False)
+    rows = {}
+    for arch in L["archs"]:
+        cfg = get_config(arch).reduced()
+        tree = numpy_params(cfg, L["weights_seed"], tp=L["model"])
+        state = make_train_state(cfg, load_jax_params(cfg, tree, "cuda",
+                                                      tp=L["model"]))
+        step = make_train_step(cfg, RunPolicy(remat=True), TrainerConfig(
+            total_steps=10, warmup_steps=2, grad_accum=L["grad_accum"],
+            tp=L["model"]))
+        ds = SyntheticLM(cfg.vocab_size, L["seq_len"], L["batch"], seed=1,
+                         mean_doc_len=8)
+        ref_m, ref_states, lrs = [], [], []
+        for i in range(L["steps"]):
+            toks, labels = (torch.from_numpy(a).cuda() for a in ds.batch(i))
+            state, m = step(state, {"tokens": toks, "labels": labels})
+            ref_m.append((float(m["loss"]), float(m["grad_norm"])))
+            lrs.append(float(m["lr"]))
+            ref_states.append(numpy_train_state(state))
+        metrics, params = res["archs"][arch]
+        for (gl, gg), (rl, rg) in zip(metrics, ref_m):
+            check(abs(gl - rl) <= LAUNCH_RTOL * abs(rl)
+                  and abs(gg - rg) <= LAUNCH_RTOL * abs(rg),
+                  f"launch_ranks {arch}: loss/grad norm {gl}/{gg} vs one "
+                  f"rank's {rl}/{rg}")
+        states = [{"params/" + k: v for k, v in p.items()} for p in params]
+        rows[arch] = dict(losses=[m[0] for m in metrics],
+                          losses_one_rank=[m[0] for m in ref_m],
+                          grad_norms=[m[1] for m in metrics],
+                          grad_norms_one_rank=[m[1] for m in ref_m],
+                          **_adamw_states_close(f"launch_ranks {arch}",
+                                                ref_states, states, lrs))
+    q_card, q_cpu = res["q_card"], res["q_cpu"]
+    B, S, d = q_cpu.shape
+    step_q = np.abs(q_cpu.reshape(B, S, world, d // world)).max(-1, keepdims=True) / 127
+    step_q = np.broadcast_to(step_q, (B, S, world, d // world)).reshape(B, S, d)
+    q_err = float(np.abs(q_card - q_cpu).max())
+    check(bool(np.all(np.abs(q_card - q_cpu) <= step_q * (1 + 1e-6))),
+          f"launch_ranks: the card's int8 all-reduce is off the CPU's by {q_err}")
+    emit("launch_ranks", card=smi, world=world, mesh="2x2", backend="gloo",
+         device="cuda:0 for every rank",
+         host_staged_collectives=res["host_staged"], wall_s=wall,
+         steps=L["steps"], grad_accum=L["grad_accum"], rtol=LAUNCH_RTOL,
+         archs=rows, q8_allreduce=dict(shape=[B, S, d], max_abs_err=q_err,
+                                       max_step=float(step_q.max())))
+
+
+def kv_int8(smi: str) -> None:
+    """Full-width yi-6b: prefill 8 x 922 tokens, then 32 decode steps from a
+    dense fp cache and from its int8 copy, both fed the fp run's greedy
+    tokens: at each step the softmax within KV_INT8_SOFTMAX_ATOL and the
+    logits within KV_INT8_LOGIT_RTOL of max |logit|, and the greedy tokens
+    agree at KV_INT8_AGREE_MIN or more. Two corrupted int8 caches (each
+    prompt token's scales from the token before it; K's and V's scales
+    swapped) run the same steps, and each must fail one of these checks.
+    Prints the readings, both caches' bytes and CUDA-event ms a step of
+    both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import RunPolicy, init_cache, init_params
+    from repro_torch.models.attention import quantize_cache
+
+    K = KV_INT8
+    held_bytes_ok("kv_int8's weights are made")
+    cfg = get_config(K["arch"])
+    model = init_params(cfg, seed=K["seed"], device="cuda")
+    B, P, N = K["batch"], K["prompt_len"], K["new_tokens"]
+    gen = torch.Generator("cuda").manual_seed(K["seed"])
+    toks = torch.randint(2, cfg.vocab_size, (B, P), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    logits, pre = model.prefill(toks)
+    corrupt = {"int8_scales_of_the_token_before":
+               lambda q: dict(q, ks=q["ks"].roll(1, 1), vs=q["vs"].roll(1, 1)),
+               "int8_k_and_v_scales_swapped":
+               lambda q: dict(q, ks=q["vs"], vs=q["ks"])}
+    caches = {"fp": init_cache(cfg, B, P + N, dtype=torch.float32, device="cuda")}
+    for name in ("int8", *corrupt):
+        caches[name] = init_cache(cfg, B, P + N, dtype=torch.float32,
+                                  kv_quant=True, device="cuda")
+    for i, c in enumerate(pre):
+        for k in ("k", "v"):
+            caches["fp"][i][k][:, :P] = c[k]
+        q = quantize_cache(c)
+        for name, fn in (("int8", dict), *corrupt.items()):
+            for k, t in fn(q).items():
+                caches[name][i][k][:, :P] = t
+    del pre
+    nbytes = {name: sum(t.numel() * t.element_size() for c in caches[name]
+                        for t in c.values()) for name in ("fp", "int8")}
+    tok = torch.argmax(logits[:, -1], -1)
+    events = {"fp": [], "int8": []}
+    read = {name: {"softmax": [], "logit_rel": [], "agree": []}
+            for name in caches if name != "fp"}
+    for i in range(N):
+        pos = torch.full((B,), P + i, dtype=torch.int32, device="cuda")
+        lgs = {}
+        for name in caches:
+            pol = RunPolicy(kv_cache_quant=name != "fp")
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            lg, caches[name] = model.decode_step(tok[:, None].int(), pos,
+                                                 caches[name], pol)
+            e1.record()
+            lgs[name] = lg[:, 0].float()
+            if name in events:
+                events[name].append((e0, e1))
+        torch.cuda.synchronize()
+        ref, p_ref = lgs["fp"], torch.softmax(lgs["fp"], -1)
+        top = float(ref.abs().max())
+        for name, r in read.items():
+            r["softmax"].append(float((torch.softmax(lgs[name], -1)
+                                       - p_ref).abs().max()))
+            r["logit_rel"].append(float((lgs[name] - ref).abs().max()) / top)
+            r["agree"].append(float((lgs[name].argmax(-1)
+                                     == ref.argmax(-1)).float().mean()))
+        tok = ref.argmax(-1)  # teacher forcing on the fp run
+    summary = {name: {"softmax_max_err": max(r["softmax"]),
+                      "logit_max_rel_err": max(r["logit_rel"]),
+                      "greedy_agreement_share": statistics.mean(r["agree"])}
+               for name, r in read.items()}
+
+    def passes(x):
+        return (x["softmax_max_err"] <= KV_INT8_SOFTMAX_ATOL
+                and x["logit_max_rel_err"] <= KV_INT8_LOGIT_RTOL
+                and x["greedy_agreement_share"] >= KV_INT8_AGREE_MIN)
+
+    step_ms = {name: [e0.elapsed_time(e1) for e0, e1 in ev]
+               for name, ev in events.items()}
+    emit("kv_int8", card=smi, arch=K["arch"], batch=B, prompt_len=P,
+         new_tokens=N, softmax_atol=KV_INT8_SOFTMAX_ATOL,
+         logit_rtol=KV_INT8_LOGIT_RTOL, agreement_min=KV_INT8_AGREE_MIN,
+         readings=summary,
+         cache_bytes=nbytes, step_ms_median={k: statistics.median(v[1:])
+                                             for k, v in step_ms.items()},
+         step_ms=step_ms)
+    x = summary["int8"]
+    check(x["softmax_max_err"] <= KV_INT8_SOFTMAX_ATOL,
+          f"kv_int8: softmax off the fp cache's by {x['softmax_max_err']}")
+    check(x["logit_max_rel_err"] <= KV_INT8_LOGIT_RTOL,
+          f"kv_int8: logits off the fp cache's by {x['logit_max_rel_err']} "
+          "of max |logit|")
+    check(x["greedy_agreement_share"] >= KV_INT8_AGREE_MIN,
+          f"kv_int8: greedy tokens agree at {x['greedy_agreement_share']}")
+    for name in corrupt:
+        check(not passes(summary[name]),
+              f"kv_int8: the checks pass a corrupted cache ({name})")
+    del model, caches
+
+
 def record_margins(sim) -> tuple:
     """Wrap every engine of ``sim`` so that it records, for the i-th token
     of each request, (top-2 logit margin, max |logit|, least router gap):
@@ -1571,8 +1933,8 @@ def record_margins(sim) -> tuple:
     tokens, prefill, gaps, logits = {}, {}, [], []
     real_route = moe_mod._route
 
-    def route(cfg, p, xt, E):
-        probs, gate_vals, idx = real_route(cfg, p, xt, E)
+    def route(cfg, p, xt, E, policy=None):
+        probs, gate_vals, idx = real_route(cfg, p, xt, E, policy)
         top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
         gaps.append(top[:, -2] - top[:, -1])
         return probs, gate_vals, idx
@@ -2019,9 +2381,10 @@ def main() -> int:
     phase_train_card_vs_cpu()
     phase_train_fault()
     phase_umtrain()
+    phase_launch()
     launches_in_training = {k: fn.launches for k, fn in counters.items()}
     check(not any(launches_in_training.values()),
-          f"the training phases launched {launches_in_training}")
+          f"the training and launch phases launched {launches_in_training}")
     launches["paged_attention"] += phase_traffic()["paged_attention"]
     launches["flash_attention"] = phase_bench()["flash_attention"]
     times = phase_timing(paged_args)

@@ -1,5 +1,6 @@
 """Benchmark harness of the port: one module per paper figure plus
-``kernels_micro``, ``lm_serve_paged`` and ``train_oversub``. CSV to stdout.
+``kernels_micro``, ``lm_serve_paged``, ``lm_roofline`` and
+``train_oversub``. CSV to stdout.
 
     python -m repro_torch.bench.run [--device cpu] [--jobs N]
         [--policy NAME] [--hw NAME] [--json [DIR]] [modules]
@@ -46,6 +47,7 @@ MODULES = [
     "repro_torch.bench.fig1213_prefetch",
     "repro_torch.bench.kernels_micro",
     "repro_torch.bench.lm_serve_paged",
+    "repro_torch.bench.lm_roofline",
     "repro_torch.bench.train_oversub",
 ]
 

@@ -3,7 +3,9 @@ from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ArchConfig,
     RunShape,
+    cells,
     get_config,
+    input_specs,
     list_archs,
     register,
 )

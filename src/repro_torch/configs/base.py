@@ -1,9 +1,9 @@
 """Architecture configs and run shapes (a copy of ``repro.configs.base``).
 
 Every assigned architecture is a selectable config (``--arch <id>``).
-``reduced()`` yields a same-family tiny config for CPU tests. The JAX
-package's ``input_specs`` (shape stand-ins for the dry-run) is not here: it
-belongs to the launch slice of the port.
+``reduced()`` yields a same-family tiny config for CPU tests.
+``input_specs()`` returns shape and dtype stand-ins (tensors on the ``meta``
+device: no allocation) for every model input of an (arch x run-shape) cell.
 """
 from __future__ import annotations
 
@@ -90,6 +90,15 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return self.mixer == "rwkv6"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch can run 500k-token decode (SSM / hybrid-local)."""
+        return self.mixer in ("rwkv6", "rglru_hybrid")
+
     def layer_kinds(self) -> List[str]:
         """Per-layer mixer kind, length num_layers."""
         if self.layer_pattern:
@@ -142,6 +151,15 @@ class ArchConfig:
         n += d  # final norm
         return n
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of num_experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        per_expert = (3 if self.mlp_act in ("swiglu", "geglu") else 2) * d * self.d_ff
+        inactive = L * (self.num_experts - self.top_k) * per_expert
+        return self.param_count() - inactive
+
     def reduced(self) -> "ArchConfig":
         """Same-family tiny config for CPU tests."""
         kw: Dict[str, Any] = dict(
@@ -184,3 +202,60 @@ def list_archs() -> List[str]:
     import repro_torch.configs  # noqa: F401
 
     return sorted(_REGISTRY)
+
+
+def cells(include_skipped: bool = False):
+    """All assigned (arch x shape) dry-run cells as (arch, shape, live).
+
+    Pure full-attention archs skip long_500k (quadratic): 8 skips => 32 live
+    cells of the 40.
+    """
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for s in SHAPES.values():
+            live = cfg.sub_quadratic or not s.sub_quadratic_only
+            if live or include_skipped:
+                out.append((arch, s.name, live))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-device stand-ins; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: RunShape, *, tp: int = 1) -> Dict[str, Any]:
+    """Shape/dtype stand-ins (``meta`` tensors) for the inputs of the step
+    that ``shape`` runs:
+
+    train  -> the batch of a train step: tokens/embeddings + labels
+    prefill-> prefill(params, tokens) inputs
+    decode -> decode_step(params, cache, tokens, pos) inputs (cache included)
+
+    The modality frontend of [vlm]/[audio] archs is a stub: the stand-ins
+    are precomputed patch/frame embeddings (input_kind == 'embeddings').
+    """
+    import torch
+
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    def tok(b, s):
+        if cfg.input_kind == "embeddings":
+            return meta(b, s, cfg.d_model, dtype=torch.bfloat16)
+        return meta(b, s, dtype=torch.int32)
+
+    if shape.kind == "train":
+        return {"tokens": tok(B, S), "labels": meta(B, S, dtype=torch.int32),
+                "micro_batch": B // shape.grad_accum}
+    if shape.kind == "prefill":
+        return {"tokens": tok(B, S)}
+    if shape.kind == "decode":
+        from repro_torch.models.cache import init_cache  # avoid an import cycle
+
+        return {"tokens": tok(B, 1), "pos": meta(B, dtype=torch.int32),
+                "cache": init_cache(cfg, B, S, tp=tp, device="meta")}
+    raise ValueError(shape.kind)

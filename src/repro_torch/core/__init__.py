@@ -35,3 +35,5 @@ from repro_torch.core.umem import (  # noqa: F401
     OutOfDeviceMemory,
     UnifiedMemory,
 )
+# NVIDIA H100 SXM constants (the port's roofline), registered as 'h100-sxm'
+from repro_torch.core import h100  # noqa: F401,E402

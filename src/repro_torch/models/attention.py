@@ -9,6 +9,14 @@ Decode path:  one query token against a dense KV cache
 Sliding-window (local) attention runs all three with a window mask, and
 decodes against a ring buffer of the window's last W tokens.
 
+Under a mesh (``RunPolicy.mesh``) the heads split over the model axis as
+the exact TP layout (``HeadLayout``) lets them: this rank computes its
+``n_q_eff / tp`` q heads over its ``n_kv_eff / tp`` kv heads, and the output
+projection is row-parallel (an all-reduce, or the int8 two-phase reduce
+under ``quantize_tp_collectives``). A dense ``attention`` cache may be int8
+(``init_cache(kv_quant=True)``): each new token's k and v are quantized per
+(token, head) on write, and the cache is dequantized on read.
+
 The projections and ``_sdpa`` are plain large products (``torch.einsum``),
 as the JAX package leaves them to XLA. Paged decode attention, the serve
 path's kernel, is ``repro_torch.kernels.paged_attention``.
@@ -28,8 +36,10 @@ from repro_torch.models.layers import (
     head_rmsnorm,
     require_no_mesh_options,
     rope_apply,
+    row_parallel,
 )
 from repro_torch.models.layout import HeadLayout
+from repro_torch.models.parallel import copy_to, param_local, tp_axis
 
 
 def _einsum_f32(spec: str, a, b):
@@ -83,30 +93,46 @@ class Attention(nn.Module):
         for p, w in ((self.wq, wq), (self.wk, wk), (self.wv, wv), (self.wo, wo)):
             p.copy_(w)
 
-    def project_qkv(self, x, positions):
+    def project_qkv(self, x, positions, policy: RunPolicy = None):
         """``_project_qkv``: x (B,S,d) -> q (B,S,N,P,D), k, v (B,S,N,D);
-        RoPE applied."""
+        RoPE applied. Under a mesh N is this rank's kv heads."""
         cfg, lay = self.cfg, self.layout
         B, S, _ = x.shape
-        q = _einsum_f32("bsd,dhe->bshe", x, self.wq).to(x.dtype)
-        k = _einsum_f32("bsd,dhe->bshe", x, self.wk).to(x.dtype)
-        v = _einsum_f32("bsd,dhe->bshe", x, self.wv).to(x.dtype)
+        ax = tp_axis(policy)
+        x = copy_to(x, ax)
+        nq, nkv = lay.n_q_eff, lay.n_kv_eff
+
+        def heads(p, full, dim=1):
+            return param_local(p, dim, full, ax)
+
+        q = _einsum_f32("bsd,dhe->bshe", x, heads(self.wq, nq)).to(x.dtype)
+        k = _einsum_f32("bsd,dhe->bshe", x, heads(self.wk, nkv)).to(x.dtype)
+        v = _einsum_f32("bsd,dhe->bshe", x, heads(self.wv, nkv)).to(x.dtype)
         if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        if cfg.qk_norm:
-            q = head_rmsnorm(q, self.q_norm)
-            k = head_rmsnorm(k, self.k_norm)
+            q = q + heads(self.bq, nq, 0)
+            k = k + heads(self.bk, nkv, 0)
+            v = v + heads(self.bv, nkv, 0)
+        if cfg.qk_norm:  # replicated scales used on local heads
+            q = head_rmsnorm(q, copy_to(self.q_norm, ax))
+            k = head_rmsnorm(k, copy_to(self.k_norm, ax))
         if cfg.pos_emb == "rope":
             q = rope_apply(q, positions, cfg.rope_theta)
             k = rope_apply(k, positions, cfg.rope_theta)
-        return q.reshape(B, S, lay.n_kv_eff, lay.p, cfg.head_dim), k, v
+        return q.reshape(B, S, k.shape[2], lay.p, cfg.head_dim), k, v
 
     def out_proj(self, o, policy: RunPolicy):
-        """``_out_proj``: o (B,S,...,D) with n_q_eff heads -> (B,S,d)."""
+        """``_out_proj``: o (B,S,...,D) with n_q_eff heads (this rank's,
+        under a mesh) -> (B,S,d)."""
         require_no_mesh_options(policy)
         B, S = o.shape[:2]
-        o = o.reshape(B, S, self.layout.n_q_eff, self.cfg.head_dim)
-        return torch.einsum("bshe,hed->bsd", o, self.wo)
+        D = self.cfg.head_dim
+        ax = tp_axis(policy)
+        if ax is None:
+            o = o.reshape(B, S, self.layout.n_q_eff, D)
+            return torch.einsum("bshe,hed->bsd", o, self.wo)
+        wo = param_local(self.wo, 0, self.layout.n_q_eff, ax)
+        return row_parallel(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]),
+                            policy, ax)
 
     def forward(self, x, policy: RunPolicy, positions, window: int = 0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -114,7 +140,7 @@ class Attention(nn.Module):
         ``positions`` (S,), over the last ``window`` keys when window > 0;
         returns the output and the sequence's {'k', 'v'} (B,S,N,D)."""
         S = x.shape[1]
-        q, k, v = self.project_qkv(x, positions)
+        q, k, v = self.project_qkv(x, positions, policy)
         qb = policy.attn_q_block
         if qb and S > qb:
             o = _blocked_causal(q, k, v, qb, policy.attn_kv_block or qb, window)
@@ -131,9 +157,17 @@ class Attention(nn.Module):
         pos % W, and slot s holds position pos - ((pos - s) mod W), unwritten
         where that is negative. Otherwise it is dense and the token goes to
         row pos; the caller keeps pos < Sc (``TransformerLM.decode_step``
-        checks it)."""
+        checks it). An int8 cache (with 'ks', 'vs' (B,Sc,N,1) fp32 scales)
+        takes the token's codes and scales and is dequantized to k's dtype
+        for the attention."""
         B = x.shape[0]
-        q, k_new, v_new = self.project_qkv(x, pos[:, None])
+        q, k_new, v_new = self.project_qkv(x, pos[:, None], policy)
+        quant = "ks" in cache
+        if quant:
+            k_w, ks_w = _quant_heads(k_new)
+            v_w, vs_w = _quant_heads(v_new)
+        else:
+            k_w, v_w = k_new, v_new
         ck, cv = cache["k"], cache["v"]
         Sc = ck.shape[1]
         bidx = torch.arange(B, device=x.device)
@@ -145,10 +179,33 @@ class Attention(nn.Module):
         else:
             idx = pos
             kpos = torch.arange(Sc, device=x.device)[None, :].expand(B, Sc)
-        ck[bidx, idx] = k_new[:, 0]
-        cv[bidx, idx] = v_new[:, 0]
+        ck[bidx, idx] = k_w[:, 0]
+        cv[bidx, idx] = v_w[:, 0]
+        if quant:
+            cache["ks"][bidx, idx] = ks_w[:, 0]
+            cache["vs"][bidx, idx] = vs_w[:, 0]
+            ck = (ck.float() * cache["ks"]).to(k_new.dtype)
+            cv = (cv.float() * cache["vs"]).to(v_new.dtype)
         o = _sdpa(q, ck, cv, _causal_bias(pos[:, None], kpos, window))
         return self.out_proj(o, policy), cache
+
+
+def _quant_heads(t):
+    """t (B,1,N,D) -> int8 codes and fp32 scales (B,1,N,1): one scale per
+    (token, head), max |t| / 127, rounding half to even."""
+    tf = t.float()
+    s = (tf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(tf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_cache(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An fp {'k', 'v'} (B,S,N,D) attention cache (``prefill``'s) as the
+    int8 cache of ``init_cache(kv_quant=True)``: codes and per-(token, head)
+    scales, quantized as decode quantizes each token."""
+    k, ks = _quant_heads(cache["k"])
+    v, vs = _quant_heads(cache["v"])
+    return {"k": k, "v": v, "ks": ks, "vs": vs}
 
 
 # ---------------------------------------------------------------------------

@@ -21,12 +21,15 @@ def kv_head_layout(cfg, tp: int) -> HeadLayout:
 
 
 def init_cache(cfg, B: int, S: int, *, tp: int = 1,
-               dtype: torch.dtype = torch.bfloat16,
+               dtype: torch.dtype = torch.bfloat16, kv_quant: bool = False,
                device=None) -> List[Dict[str, torch.Tensor]]:
     """One cache of zeros per layer, on ``device`` (the CUDA card unless the
-    caller passes ``device="cpu"``), by the layer's kind:
+    caller passes ``device="cpu"``; ``"meta"`` for shape stand-ins), by the
+    layer's kind:
 
-    * ``attention``: {'k', 'v'} (B, S, Hkv_eff, D);
+    * ``attention``: {'k', 'v'} (B, S, Hkv_eff, D); with ``kv_quant`` int8
+      codes plus {'ks', 'vs'} (B, S, Hkv_eff, 1) fp32 per-(token, head)
+      scales;
     * ``local``: {'k', 'v'} (B, min(W, S), Hkv_eff, D), a ring of the last
       W tokens when S >= W;
     * ``rglru``: {'h'} (B, w) fp32 and {'conv'} (B, conv_width - 1, w);
@@ -42,7 +45,13 @@ def init_cache(cfg, B: int, S: int, *, tp: int = 1,
         lay = kv_head_layout(cfg, tp)
     caches: List[Dict[str, torch.Tensor]] = []
     for kind in cfg.layer_kinds():
-        if kind in ("attention", "local"):
+        if kind == "attention" and kv_quant:
+            kv = (B, S, lay.n_kv_eff, cfg.head_dim)
+            caches.append({"k": zeros(*kv, dt=torch.int8),
+                           "v": zeros(*kv, dt=torch.int8),
+                           "ks": zeros(*kv[:3], 1, dt=torch.float32),
+                           "vs": zeros(*kv[:3], 1, dt=torch.float32)})
+        elif kind in ("attention", "local"):
             n = S if kind == "attention" else min(cfg.local_window, S)
             caches.append({"k": zeros(B, n, lay.n_kv_eff, cfg.head_dim),
                            "v": zeros(B, n, lay.n_kv_eff, cfg.head_dim)})

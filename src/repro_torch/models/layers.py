@@ -4,11 +4,19 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models.parallel import (
+    copy_to,
+    param_local,
+    reduce_from,
+    split_local,
+    tp_axis,
+)
 
 
 @dataclass
@@ -17,30 +25,55 @@ class RunPolicy:
 
     ``attn_q_block`` > 0 runs full-sequence attention block-causally
     (:func:`repro_torch.models.attention._blocked_causal`) with
-    ``attn_kv_block`` (default: the q block) keys per block. The int8 TP
-    all-reduce (``quantize_tp_collectives``) needs a device mesh; it comes
-    with the launch slice of the port and raises until then. MoE layers
+    ``attn_kv_block`` (default: the q block) keys per block. MoE layers
     route with ``moe_capacity_factor`` through ``moe_impl``: ``"dense"``
     (GShard dispatch einsums) or ``"sorted"`` (scatter dispatch). rwkv6's
     wkv runs in chunks of ``rwkv_chunk`` tokens (halved until it divides the
     sequence). ``remat`` recomputes each block's activations in the
     backward pass of a training forward (``torch.utils.checkpoint``, the
-    JAX package's ``jax.checkpoint``) instead of keeping them."""
+    JAX package's ``jax.checkpoint``) instead of keeping them.
+
+    ``mesh`` (a ``repro_torch.launch.mesh.Mesh``, set by
+    ``launch.sharding.make_run_policy``) makes the blocks run on this
+    rank's shards and call the collectives of ``models/parallel.py``.
+    ``quantize_tp_collectives`` replaces the row-parallel all-reduces by the
+    int8 two-phase reduce (``models/qcomm.py``) and needs a mesh.
+    ``kv_cache_quant`` asks for int8 KV caches (``init_cache(kv_quant=True)``;
+    decode follows the cache it is given). The JAX package's
+    ``onehot_embed`` and ``constrain`` have no counterpart: the embedding's
+    shape shows whether its vocab is sharded, and explicit shards fix every
+    activation layout in the blocks."""
 
     remat: bool = False
     attn_q_block: int = 0  # 0 => unblocked attention
     attn_kv_block: int = 0
     rwkv_chunk: int = 128
     moe_capacity_factor: float = 1.25
-    quantize_tp_collectives: bool = False
+    quantize_tp_collectives: bool = False  # int8 two-phase TP all-reduce
+    kv_cache_quant: bool = False  # int8 KV cache (decode memory term)
     moe_impl: str = "dense"  # dense (GShard einsum) | sorted (scatter)
+    mesh: Any = None
 
 
 def require_no_mesh_options(policy: RunPolicy) -> None:
-    if policy.quantize_tp_collectives:
+    if policy.quantize_tp_collectives and policy.mesh is None:
         raise NotImplementedError(
-            "int8 TP collectives need a device mesh; they come with the "
-            "launch slice of the port")
+            "int8 TP collectives need a device mesh "
+            "(launch.sharding.make_run_policy)")
+
+
+def row_parallel(h, w, policy: RunPolicy, axis):
+    """h (..., K_local) @ w (K_local, d), summed over ``axis`` when the
+    contraction is split over it: by all-reduce, or by the int8 two-phase
+    reduce under ``policy.quantize_tp_collectives`` -- an inference lever:
+    a pass that records grads keeps the exact all-reduce."""
+    if axis is None:
+        return h @ w
+    if policy.quantize_tp_collectives and not torch.is_grad_enabled():
+        from repro_torch.models.qcomm import rowparallel_matmul_q8
+
+        return rowparallel_matmul_q8(h, w, axis, h.dtype)
+    return reduce_from(h @ w, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +181,7 @@ class MLP(nn.Module):
         if cfg.mlp_act not in ("swiglu", "geglu", "gelu"):
             raise ValueError(f"unknown mlp_act {cfg.mlp_act!r}")
         self.act = cfg.mlp_act
+        self.cfg_d_ff = f
 
         def param(*shape, fill=None):
             t = torch.empty(shape, dtype=dtype, device=device)
@@ -171,11 +205,23 @@ class MLP(nn.Module):
                 w.copy_(dense_init(gen, tuple(w.shape), w.dtype))
 
     def forward(self, x, policy: RunPolicy):
+        """Column-parallel up/gate and row-parallel down projection over the
+        model axis where it divides d_ff; replicated otherwise."""
         require_no_mesh_options(policy)
-        if self.act == "swiglu":
-            return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
-        if self.act == "geglu":
-            g = F.gelu(x @ self.w_gate, approximate="tanh")
-            return (g * (x @ self.w_up)) @ self.w_down
-        h = F.gelu(x @ self.w_up + self.b_up, approximate="tanh")
-        return h @ self.w_down + self.b_down
+        ax = tp_axis(policy)
+        ax = ax if split_local(self.cfg_d_ff, ax) else None
+        x = copy_to(x, ax)
+
+        def col(w):
+            return x @ param_local(w, -1, self.cfg_d_ff, ax)
+
+        if self.act in ("swiglu", "geglu"):
+            g = col(self.w_gate)
+            g = F.silu(g) if self.act == "swiglu" else F.gelu(g, approximate="tanh")
+            h = g * col(self.w_up)
+        else:
+            b = param_local(self.b_up, 0, self.cfg_d_ff, ax)
+            h = F.gelu(col(self.w_up) + b, approximate="tanh")
+        y = row_parallel(h, param_local(self.w_down, 0, self.cfg_d_ff, ax),
+                         policy, ax)
+        return y if self.act != "gelu" else y + self.b_down

@@ -16,6 +16,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RunPolicy, dense_init
+from repro_torch.models.parallel import (
+    copy_to,
+    gather_from,
+    local_slice,
+    param_local,
+    reduce_from,
+    split_local,
+    tp_axis,
+)
 
 _C = 8.0
 
@@ -59,6 +68,7 @@ class RgLru(nn.Module):
         super().__init__()
         d, w, H = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.num_heads
         self.cfg = cfg
+        self.width = w
 
         def param(*shape, fill=None, dt=dtype):
             t = torch.empty(shape, dtype=dt, device=device)
@@ -95,37 +105,69 @@ class RgLru(nn.Module):
                                      device=gen.device, dtype=torch.float32)
         self.lam.copy_(lambda_init(u))
 
-    def _gates(self, xc):
-        """(a, gated input) in fp32 from the conv output xc."""
+    def _axis(self, policy):
+        """The model axis when the lru width splits over it, else None."""
+        ax = tp_axis(policy)
+        return ax if split_local(self.width, ax) else None
+
+    def _p(self, name: str, dim: int, ax):
+        """This rank's channels of a per-channel parameter."""
+        return param_local(getattr(self, name), dim, self.width, ax)
+
+    def _blockdiag_local(self, xc, w, ax):
+        """The block-diagonal gate product at this rank's channels."""
         H = self.cfg.num_heads
-        i_t = torch.sigmoid(_blockdiag(xc, self.gate_i, H).float() + self.bias_i)
-        r_t = torch.sigmoid(_blockdiag(xc, self.gate_r, H).float() + self.bias_r)
-        log_a = -_C * F.softplus(self.lam) * r_t  # <= 0
+        if ax is None or H % ax.size == 0:
+            return _blockdiag(xc, param_local(w, 0, H, ax),
+                              H // (ax.size if ax is not None else 1))
+        full = _blockdiag(gather_from(xc, -1, ax), w, H)
+        return local_slice(copy_to(full, ax), -1, ax)
+
+    def _gates(self, xc, ax=None):
+        """(a, gated input) in fp32 from the conv output xc."""
+        i_t = torch.sigmoid(self._blockdiag_local(xc, self.gate_i, ax).float()
+                            + self._p("bias_i", 0, ax))
+        r_t = torch.sigmoid(self._blockdiag_local(xc, self.gate_r, ax).float()
+                            + self._p("bias_r", 0, ax))
+        log_a = -_C * F.softplus(self._p("lambda", 0, ax)) * r_t  # <= 0
         beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
         return torch.exp(log_a), beta * i_t * xc.float()
 
-    def _conv_train(self, y):
+    def _conv_train(self, y, ax=None):
         """Causal depthwise temporal conv of y (B,S,w) via shifts."""
         cw = self.cfg.conv_width
-        out = y * self.conv_w[cw - 1]
+        conv_w = self._p("conv_w", 1, ax)
+        out = y * conv_w[cw - 1]
         for k in range(1, cw):
             shifted = F.pad(y, (0, 0, k, 0))[:, :y.shape[1]]
-            out = out + shifted * self.conv_w[cw - 1 - k]
-        return out + self.conv_b
+            out = out + shifted * conv_w[cw - 1 - k]
+        return out + self._p("conv_b", 0, ax)
+
+    def _in(self, x, ax):
+        """The two column-parallel input branches: y and the fp32 gelu gate."""
+        x = copy_to(x, ax)
+        y = x @ self._p("w_y", 1, ax)
+        gate = F.gelu((x @ self._p("w_gate", 1, ax)).float(), approximate="tanh")
+        return y, gate
+
+    def _out(self, h, gate, dtype, ax):
+        return reduce_from((h * gate).to(dtype) @ self._p("w_out", 0, ax), ax)
 
     def forward(self, x, policy: RunPolicy
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Over a whole sequence x (B,S,d) from a zero state. Returns the
         output and the decode cache {'h': (B,w) fp32, 'conv': the last
-        cw - 1 inputs of the conv (fewer when S < cw - 1)}."""
-        y = x @ self.w_y
-        gate = F.gelu((x @ self.w_gate).float(), approximate="tanh")
-        a, gated = self._gates(self._conv_train(y))
+        cw - 1 inputs of the conv (fewer when S < cw - 1)}; under a mesh
+        w is this rank's channels."""
+        ax = self._axis(policy)
+        y, gate = self._in(x, ax)
+        a, gated = self._gates(self._conv_train(y, ax), ax)
         h = linear_scan(a, gated)
-        out = (h * gate).to(x.dtype) @ self.w_out
+        out = self._out(h, gate, x.dtype, ax)
         return out, {"h": h[:, -1], "conv": y[:, -(self.cfg.conv_width - 1):]}
 
-    def decode(self, x, cache: Dict[str, torch.Tensor]
+    def decode(self, x, cache: Dict[str, torch.Tensor],
+               policy: RunPolicy = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One step: x (B,1,d); cache {'h': (B,w) fp32, 'conv': (B,cw-1,w)}.
         Raises ValueError on a conv window shorter than cw - 1 (a prompt
@@ -136,12 +178,12 @@ class RgLru(nn.Module):
                 f"rglru conv cache holds {cache['conv'].shape[1]} inputs, "
                 f"decode needs conv_width - 1 = {cw - 1}: prefill a prompt "
                 f"of at least {cw - 1} tokens")
-        xt = x[:, 0]
-        y = xt @ self.w_y  # (B,w)
-        gate = F.gelu((xt @ self.w_gate).float(), approximate="tanh")
+        ax = self._axis(policy)
+        y, gate = self._in(x[:, 0], ax)  # (B,w)
         win = torch.cat([cache["conv"], y[:, None]], dim=1)  # (B,cw,w)
-        yc = torch.einsum("bkw,kw->bw", win, self.conv_w) + self.conv_b
-        a, gated = self._gates(yc)
+        yc = (torch.einsum("bkw,kw->bw", win, self._p("conv_w", 1, ax))
+              + self._p("conv_b", 0, ax))
+        a, gated = self._gates(yc, ax)
         h = a * cache["h"] + gated
-        out = (h * gate).to(x.dtype) @ self.w_out
+        out = self._out(h, gate, x.dtype, ax)
         return out[:, None], {"h": h, "conv": win[:, 1:]}

@@ -14,6 +14,11 @@ is 1.07 GB at rwkv6-1.6b's width for B = 8, C = 128, so only one is live
 (built in place, except where autograd records the pass).
 The reference has no Pallas kernel here; this is plain torch, as the JAX
 package computes it outside any ``pallas_call``.
+
+Under a mesh the heads split over the model axis (``wr``/``wk``/``wv``/
+``wg`` column-parallel, ``wo`` row-parallel, ``u``, ``w0`` and the group
+norm per head); the channel mix splits d_ff (``wk`` column, ``wv`` row)
+and gathers the receptance, whose ``wr`` is column-sharded over d.
 """
 from __future__ import annotations
 
@@ -25,6 +30,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RunPolicy, dense_init
+from repro_torch.models.parallel import (
+    copy_to,
+    gather_from,
+    param_local,
+    reduce_from,
+    split_local,
+    tp_axis,
+)
 
 _COMPONENTS = 5  # w, k, v, r, g
 
@@ -187,20 +200,35 @@ class RwkvTimeMix(nn.Module):
         B, S, d = x.shape
         hs = self.cfg.rwkv_head_size
         H = d // hs
+        ax = tp_axis(policy)
+        ax = ax if split_local(d, ax) else None
+        if ax is not None and H % ax.size:
+            raise NotImplementedError(
+                f"rwkv6: {H} heads do not split over {ax.size} ranks")
+        Hl = H // (ax.size if ax is not None else 1)
         if s0 is None:
-            s0 = torch.zeros((B, H, hs, hs), dtype=torch.float32,
+            s0 = torch.zeros((B, Hl, hs, hs), dtype=torch.float32,
                              device=x.device)
         sx = _token_shift(x, x_prev)
         xw, xk, xv, xr, xg = _ddlerp(self, x, sx)
-        r = (xr @ self.wr).reshape(B, S, H, hs)
-        k = (xk @ self.wk).reshape(B, S, H, hs)
-        v = (xv @ self.wv).reshape(B, S, H, hs)
-        g = F.silu(xg @ self.wg)
-        wlog = -torch.exp(self.w0 + torch.tanh(xw @ self.w_lora_A) @ self.w_lora_B)
-        y, sT = wkv6_chunked(r, k, v, wlog.reshape(B, S, H, hs), self.u, s0,
+
+        def cols(xx, w):  # column-parallel over the heads
+            return copy_to(xx, ax) @ param_local(w, 1, d, ax)
+
+        r = cols(xr, self.wr).reshape(B, S, Hl, hs)
+        k = cols(xk, self.wk).reshape(B, S, Hl, hs)
+        v = cols(xv, self.wv).reshape(B, S, Hl, hs)
+        g = F.silu(cols(xg, self.wg))
+        lora = cols(torch.tanh(xw @ self.w_lora_A), self.w_lora_B)
+        wlog = -torch.exp(param_local(self.w0, 0, d, ax) + lora)
+        y, sT = wkv6_chunked(r, k, v, wlog.reshape(B, S, Hl, hs),
+                             param_local(self.u, 0, H, ax), s0,
                              policy.rwkv_chunk)
-        y = _head_groupnorm(y.reshape(B, S, d), self.ln_scale, self.ln_bias, H)
-        return (y * g) @ self.wo, {"s": sT, "x_prev": x[:, -1]}
+        y = _head_groupnorm(y.reshape(B, S, Hl * hs),
+                            param_local(self.ln_scale, 0, d, ax),
+                            param_local(self.ln_bias, 0, d, ax), Hl)
+        out = reduce_from((y * g) @ param_local(self.wo, 0, d, ax), ax)
+        return out, {"s": sT, "x_prev": x[:, -1]}
 
 
 class RwkvChannelMix(nn.Module):
@@ -210,6 +238,7 @@ class RwkvChannelMix(nn.Module):
     def __init__(self, cfg, dtype: torch.dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
+        self.cfg_d_ff = f
         self.mu_k = _param((d,), dtype, device, 0.5)
         self.mu_r = _param((d,), dtype, device, 0.5)
         self.wk = _param((d, f), dtype, device)
@@ -220,11 +249,18 @@ class RwkvChannelMix(nn.Module):
         for w in (self.wk, self.wv, self.wr):
             w.copy_(dense_init(gen, tuple(w.shape), w.dtype))
 
-    def forward(self, x, x_prev: Optional[torch.Tensor] = None
+    def forward(self, x, x_prev: Optional[torch.Tensor] = None,
+                policy: Optional[RunPolicy] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B,S,d) -> (output, x's last token (B,d))."""
+        d, f = self.wr.shape[0], self.cfg_d_ff
+        ax = tp_axis(policy)
+        axf = ax if split_local(f, ax) else None
+        axd = ax if split_local(d, ax) else None
         sx = _token_shift(x, x_prev)
         xk = x + sx * self.mu_k
         xr = x + sx * self.mu_r
-        h = torch.square(F.relu(xk @ self.wk))
-        return torch.sigmoid(xr @ self.wr) * (h @ self.wv), x[:, -1]
+        h = torch.square(F.relu(copy_to(xk, axf) @ param_local(self.wk, 1, f, axf)))
+        kv = reduce_from(h @ param_local(self.wv, 0, f, axf), axf)
+        r = torch.sigmoid(copy_to(xr, axd) @ param_local(self.wr, 1, d, axd))
+        return gather_from(r, -1, axd) * kv, x[:, -1]

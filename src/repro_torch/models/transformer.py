@@ -17,6 +17,14 @@ so ``models/convert.py`` maps one onto the other name for name, and
 through :func:`loss_fn` (the parameters take grads once
 ``train.make_train_state`` enables them), with :func:`grad_mask` and
 :func:`sync_replica_grads` keeping a padded TP head layout exact.
+
+Under a mesh (``RunPolicy.mesh``; ``launch.sharding.shard_model_`` leaves
+each parameter as this rank's shard) the blocks run tensor-parallel (see
+each block's module), the embedding and the logits are vocab-sharded (a
+masked local lookup plus an all-reduce, exact against the one-hot product;
+each rank's logits are its vocab slice), and :func:`loss_fn` takes the
+vocab-parallel cross-entropy and, under data parallelism, returns this
+rank's share of the global batch's loss.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.common import resolve_device
@@ -31,6 +40,15 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.cache import kv_head_layout
 from repro_torch.models.layers import MLP, Norm, RunPolicy, dense_init, sinusoidal_table
 from repro_torch.models.moe import MoE, num_experts_eff
+from repro_torch.models.parallel import (
+    all_gather,
+    all_reduce_,
+    copy_to,
+    dp_axis,
+    local_slice,
+    reduce_from,
+    tp_axis,
+)
 from repro_torch.models.rglru import RgLru
 from repro_torch.models.rwkv import RwkvChannelMix, RwkvTimeMix
 from repro_torch.tree import leaves, tree_map
@@ -90,7 +108,7 @@ class Block(nn.Module):
         x = x + mixed
         h = self.norm2(x)
         if self.kind == "rwkv6":
-            y, cache["xf"] = self.ffn(h)
+            y, cache["xf"] = self.ffn(h, policy=policy)
         else:
             y = self.ffn(h, policy)
         return x + y, cache
@@ -107,7 +125,7 @@ class Block(nn.Module):
         h = self.norm2(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.kind == "rwkv6":
-            y, _ = self.ffn(h)
+            y, _ = self.ffn(h, policy=policy)
         elif isinstance(self.ffn, MoE):
             y, aux = self.ffn(h, policy, with_aux=True)
         else:
@@ -122,14 +140,14 @@ class Block(nn.Module):
             mixed, c = self.mixer(h, policy, x_prev=cache["xa"], s0=cache["s"])
             cache = {"s": c["s"], "xa": c["x_prev"], "xf": cache["xf"]}
         elif self.kind == "rglru":
-            mixed, cache = self.mixer.decode(h, cache)
+            mixed, cache = self.mixer.decode(h, cache, policy)
         else:
             mixed, cache = self.mixer.decode(h, pos, cache, policy,
                                              window=self.window)
         x = x + mixed
         h = self.norm2(x)
         if self.kind == "rwkv6":
-            y, cache["xf"] = self.ffn(h, x_prev=cache["xf"])
+            y, cache["xf"] = self.ffn(h, x_prev=cache["xf"], policy=policy)
         else:
             y = self.ffn(h, policy)
         return x + y, cache
@@ -189,22 +207,37 @@ class TransformerLM(nn.Module):
                                          self.head.w.dtype))
 
     # -------------------------------------------------------------- ends
-    def embed_in(self, tokens, positions):
-        """tokens (B,S) int, or (B,S,d) embeddings for an 'embeddings' arch."""
+    def embed_in(self, tokens, positions, policy: Optional[RunPolicy] = None):
+        """tokens (B,S) int, or (B,S,d) embeddings for an 'embeddings' arch.
+        A vocab-sharded embedding (under a mesh, fewer rows than the vocab)
+        looks up the tokens of this rank's rows, zeros elsewhere, and
+        all-reduces: the JAX package's one-hot einsum, exactly."""
         cfg = self.cfg
         if cfg.input_kind == "embeddings" and tokens.dim() == 3:
             x = tokens
         else:
-            x = self.embed.w[tokens.long()]
+            w = self.embed.w
+            ax = tp_axis(policy, w.shape[0] != cfg.vocab_size)
+            if ax is not None:
+                rows = tokens.long() - ax.rank * w.shape[0]
+                mine = (rows >= 0) & (rows < w.shape[0])
+                x = w[rows.clamp(0, w.shape[0] - 1)] * mine[..., None].to(w.dtype)
+                x = reduce_from(x, ax)
+            else:
+                x = w[tokens.long()]
         if cfg.pos_emb == "sinusoidal":
             x = x + sinusoidal_table(positions, cfg.d_model).to(x.dtype)
         return x
 
-    def logits_out(self, x):
-        """(B,S,d) -> fp32 logits (B,S,V)."""
+    def logits_out(self, x, policy: Optional[RunPolicy] = None):
+        """(B,S,d) -> fp32 logits (B,S,V); under a mesh with a vocab-sharded
+        head (or tied embedding), this rank's vocab slice."""
+        w = self.embed.w if self.cfg.tie_embeddings else self.head.w
+        vdim = 0 if self.cfg.tie_embeddings else 1
+        x = copy_to(x, tp_axis(policy, w.shape[vdim] != self.cfg.vocab_size))
         if self.cfg.tie_embeddings:
-            return torch.einsum("bsd,vd->bsv", x.float(), self.embed.w.float())
-        return torch.matmul(x.float(), self.head.w.float())
+            return torch.einsum("bsd,vd->bsv", x.float(), w.float())
+        return torch.matmul(x.float(), w.float())
 
     # ------------------------------------------------------------ passes
     @torch.inference_mode()
@@ -223,13 +256,13 @@ class TransformerLM(nn.Module):
     def _run(self, tokens, policy: RunPolicy, last_only=False):
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        x = self.embed_in(tokens, positions)
+        x = self.embed_in(tokens, positions, policy)
         caches = []
         for blk in self.layers:
             x, cache = blk(x, policy, positions)
             caches.append(cache)
         x = self.final_norm(x)
-        return self.logits_out(x[:, -1:] if last_only else x), caches
+        return self.logits_out(x[:, -1:] if last_only else x, policy), caches
 
     def forward_train(self, tokens, policy: Optional[RunPolicy] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,7 +273,7 @@ class TransformerLM(nn.Module):
         policy = policy or RunPolicy()
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        x = self.embed_in(tokens, positions)
+        x = self.embed_in(tokens, positions, policy)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
             if policy.remat and torch.is_grad_enabled():
@@ -249,7 +282,7 @@ class TransformerLM(nn.Module):
             else:
                 x, aux = blk.forward_train(x, policy, positions)
             aux_total = aux_total + aux
-        return self.logits_out(self.final_norm(x)), aux_total
+        return self.logits_out(self.final_norm(x), policy), aux_total
 
     @torch.inference_mode()
     def decode_step(self, tokens, pos, cache: List[Dict[str, torch.Tensor]],
@@ -262,16 +295,17 @@ class TransformerLM(nn.Module):
         policy = policy or RunPolicy()
         dense = [n for blk, c in zip(self.layers, cache)
                  if (n := blk.dense_len(c)) is not None]
-        if dense and int(pos.max()) >= min(dense):  # one host sync a step
+        # one host sync a step (none for the dry-run's fake tensors)
+        if dense and not isinstance(pos, FakeTensor) and int(pos.max()) >= min(dense):
             raise ValueError(
                 f"position {int(pos.max())} does not fit a dense KV cache of "
                 f"{min(dense)} positions")
-        x = self.embed_in(tokens, pos[:, None])
+        x = self.embed_in(tokens, pos[:, None], policy)
         new_cache = []
         for blk, c in zip(self.layers, cache):
             x, c = blk.decode(x, pos, c, policy)
             new_cache.append(c)
-        return self.logits_out(self.final_norm(x)), new_cache
+        return self.logits_out(self.final_norm(x), policy), new_cache
 
 
 def _tree_of(module: nn.Module):
@@ -296,17 +330,58 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, *,
     return model
 
 
+def set_policy_tp(policy: RunPolicy, tp: int) -> RunPolicy:
+    """Record the tensor-parallel degree the params were laid out for (the
+    JAX package keeps it out of band; MoE padding depends on it)."""
+    policy._tp = tp
+    return policy
+
+
+def policy_tp(policy: RunPolicy) -> int:
+    return getattr(policy, "_tp", 1)
+
+
+def init_params_specs(cfg, *, dtype: torch.dtype = torch.bfloat16, tp: int = 1):
+    """The parameter tree of a :class:`TransformerLM` on the ``meta`` device:
+    shapes and dtypes, no allocation (the dry-run's and the sharding
+    rules' input)."""
+    return TransformerLM(cfg, tp=tp, dtype=dtype, device="meta").params_tree()
+
+
+def _label_logp(cfg, logits, labels, policy):
+    """log p(label) per position; with vocab-sharded logits the
+    vocab-parallel form (max, sum-exp and the label's logit all-reduced
+    over the model axis)."""
+    lf = logits.float()
+    ax = tp_axis(policy, lf.shape[-1] != cfg.vocab_size)
+    if ax is None:
+        logp = torch.log_softmax(lf, dim=-1)
+        return torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    Vl = lf.shape[-1]
+    m = all_reduce_(lf.detach().amax(dim=-1, keepdim=True), ax,
+                    torch.distributed.ReduceOp.MAX)
+    sumexp = reduce_from(torch.exp(lf - m).sum(dim=-1), ax)
+    rows = labels.clamp(min=0) - ax.rank * Vl
+    mine = (rows >= 0) & (rows < Vl)
+    picked = torch.gather(lf, -1, rows.clamp(0, Vl - 1)[..., None])[..., 0]
+    picked = reduce_from(torch.where(mine, picked, 0.0), ax)
+    return picked - m[..., 0] - torch.log(sumexp)
+
+
 def loss_fn(model: TransformerLM, batch: Dict[str, torch.Tensor],
             policy: Optional[RunPolicy] = None):
     """Next-token cross-entropy over the labels >= 0 (the data pipeline
     shifts them and marks document joints -1), plus 0.01 * the MoE
-    load-balance loss / the layer count. Returns (loss, {'ce', 'aux'})."""
+    load-balance loss / the layer count. Returns (loss, {'ce', 'aux'}).
+    Under data parallelism the cross-entropy divides by the global batch's
+    label count and the MoE loss is this rank's share, so the ranks'
+    losses sum to the loss of the global batch."""
     logits, aux = model.forward_train(batch["tokens"], policy)
     labels = batch["labels"].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    ll = _label_logp(model.cfg, logits, labels, policy)
     mask = (labels >= 0).float()
-    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = all_reduce_(mask.sum(), dp_axis(policy))
+    ce = -(ll * mask).sum() / torch.clamp(count, min=1.0)
     loss = ce + 0.01 * aux / max(1, model.cfg.num_layers)
     return loss, {"ce": ce, "aux": aux}
 
@@ -352,9 +427,11 @@ def grad_mask(cfg, params, tp: int):
 
 
 @torch.no_grad()
-def sync_replica_grads(cfg, grads, tp: int):
+def sync_replica_grads(cfg, grads, tp: int, axis=None):
     """Sum the KV-projection grads across a layout's replicas and give each
-    replica the sum (keeps replicas identical), in place. Returns grads."""
+    replica the sum (keeps replicas identical), in place. Returns grads.
+    With ``axis`` (the model axis of a mesh) the grads are this rank's
+    heads: they are gathered over it, summed, and this rank's part kept."""
     if cfg.mixer == "rwkv6":
         return grads
     lay = kv_head_layout(cfg, tp)
@@ -364,7 +441,12 @@ def sync_replica_grads(cfg, grads, tp: int):
         if kind not in ("attention", "local"):
             continue
         g = grads["layers"][i]["mixer"]
-        for name, axis in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
-            if name in g:
-                g[name].copy_(lay.reduce_kv_grad(g[name], axis))
+        for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+            if name not in g:
+                continue
+            if axis is not None and g[name].shape[dim] != lay.n_kv_eff:
+                full = lay.reduce_kv_grad(all_gather(g[name], dim, axis), dim)
+                g[name].copy_(local_slice(full, dim, axis))
+            else:
+                g[name].copy_(lay.reduce_kv_grad(g[name], dim))
     return grads

@@ -36,14 +36,19 @@ def adamw_init(params) -> Dict[str, Any]:
 @torch.no_grad()
 def adamw_update(grads, opt, params, *, lr, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.1,
-                 clip_norm: float = 1.0) -> torch.Tensor:
+                 clip_norm: float = 1.0, grad_norm=None) -> torch.Tensor:
     """One step over the trees ``grads``, ``opt`` and ``params`` (same
     structure), in place: the grads are clipped in place, ``opt`` and
     ``params`` updated. ``lr`` is a float or a 0-d tensor. Returns the
-    global grad norm before the clip (a 0-d fp32 tensor; no host sync)."""
+    global grad norm before the clip (a 0-d fp32 tensor; no host sync).
+    ``grad_norm`` gives that norm where the trees hold only a part of the
+    gradient (the ZeRO-1 slices of a sharded step)."""
     g_l = [g.float() for g in leaves(grads)]
-    norms = torch._foreach_norm(g_l)
-    gnorm = torch.sqrt(sum(n * n for n in norms))
+    if grad_norm is None:
+        norms = torch._foreach_norm(g_l)
+        gnorm = torch.sqrt(sum(n * n for n in norms))
+    else:
+        gnorm = grad_norm
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     count = opt["count"]

@@ -28,6 +28,7 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.qv_gate import apply_two_qubit_gate
 from repro_torch.kernels.stencil5 import stencil5
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.data import DataLoader, SyntheticLM
 from repro_torch.examples import (
     buffer_api,
@@ -73,7 +74,12 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.data, repro_torch.checkpoint, repro_torch.train, "
             "repro_torch.runtime.straggler, repro_torch.runtime.elastic, "
             "repro_torch.bench.train_oversub, repro_torch.examples.train_100m, "
-            "repro_torch.examples.quickstart; "
+            "repro_torch.examples.quickstart, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline, repro_torch.launch.analysis, "
+            "repro_torch.core.h100, repro_torch.models.qcomm, "
+            "repro_torch.models.parallel, repro_torch.bench.lm_roofline; "
             "[__import__(m) for m in repro_torch.bench.run.MODULES]; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -92,7 +98,11 @@ def test_import_leaves_jax_and_repro_out():
     for m in ("optim.adamw", "optim.compression", "optim.schedule",
               "data.pipeline", "checkpoint.manager", "train.trainer",
               "train.offload", "train.umtrain", "runtime.straggler",
-              "runtime.elastic", "bench.train_oversub"):
+              "runtime.elastic", "bench.train_oversub", "launch.mesh",
+              "launch.sharding", "launch.steps", "launch.train",
+              "launch.dryrun", "launch.roofline", "launch.analysis",
+              "core.h100", "models.qcomm", "models.parallel",
+              "bench.lm_roofline"):
         assert f"repro_torch.{m}" in mods
     assert [m for m in mods if _banned(m)] == []
 
@@ -124,7 +134,11 @@ def test_entry_points_default_to_the_card(run, monkeypatch):
     lambda cfg: init_cache(cfg, 1, 8),
     lambda cfg: ServeEngine(cfg, init_params(cfg, device="cpu")),
     lambda cfg: launch_serve.main(["--arch", "yi-6b", "--reduced"]),
-], ids=["init_params", "init_cache", "ServeEngine", "launch.serve"])
+    lambda cfg: launch_train.main(["--arch", "yi-6b", "--reduced", "--steps", "1"]),
+    lambda cfg: launch_train.main(["--arch", "yi-6b", "--reduced", "--data", "2",
+                                   "--model", "2"]),
+], ids=["init_params", "init_cache", "ServeEngine", "launch.serve",
+        "launch.train", "launch.train-2x2"])
 def test_serve_entry_points_default_to_the_card(entry, monkeypatch):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):

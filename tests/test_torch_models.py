@@ -145,5 +145,5 @@ def test_mesh_options_raise_until_the_launch_slice():
     cfg = get_config("yi-6b").reduced()
     model = init_params(cfg, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="launch slice"):
+    with pytest.raises(NotImplementedError, match="device mesh"):
         model(toks, RunPolicy(quantize_tp_collectives=True))
