@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and ``nvcc``. It builds the CUDA kernels from
-``src/repro_torch/csrc`` (and fails unless the bf16 flash kernels hold
-``HGMMA`` tensor-core instructions and spill nothing), holds each against its
-plain PyTorch version on the card (flash attention in bf16 on the tensor
-cores, paged attention also at its chunk boundaries and at the MoE archs'
-decode shapes), drives the port's main paths through the kernels, counting
+``src/repro_torch/csrc`` (and fails unless every flash kernel holds
+tensor-core instructions, ``HGMMA`` in bf16 and ``HMMA`` in fp32, and
+spills nothing), holds each against its plain PyTorch version on the card
+(flash attention in fp32 and bf16 on the tensor cores, paged attention also
+at its chunk boundaries and at the MoE archs' decode shapes), drives the
+port's main paths through the kernels, counting
 each kernel's launches: the six paper apps at full size (hotspot, srad and
 qiskit through their kernels; pathfinder, needle and bfs in plain torch),
 paged-KV serving of full-width yi-6b and of full-width olmoe-1b-7b (8
@@ -68,10 +69,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor and
-# dense bf16 tensor-core flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor, dense
+# TF32 and dense bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 
 HOTSPOT = dict(rows=16384, cols=16384, iters=8)
@@ -329,28 +331,51 @@ def sass_counts(lib_path, needle: str, opcode: str) -> dict:
     return out
 
 
+def tensor_core_kernels(lib, stem: str, needle: str, opcode: str,
+                        count: int) -> tuple:
+    """({kernel: count of ``opcode``}, {kernel: (registers, spill stores,
+    spill loads)}) of the entry functions named ``needle`` in the library
+    built from ``csrc/<stem>.cu``; fails unless there are ``count`` of them,
+    each with the opcode, and none spills."""
+    so = next(p for p in lib.paths
+              if re.fullmatch(rf"lib{stem}_[0-9a-f]+\.so", p.name))
+    ops = sass_counts(so, needle, opcode)
+    regs = ptxas_entries(lib.ptxas_report, needle)
+    check(len(ops) == count and all(n > 0 for n in ops.values()),
+          f"{opcode} instructions in the kernels of {stem}.cu: {ops}")
+    # an empty report means the libraries were loaded from an earlier build
+    check(not regs or (len(regs) == count and all(
+        r[1] == 0 and r[2] == 0 for r in regs.values())),
+          f"the kernels of {stem}.cu spill: {regs}")
+    return ops, regs
+
+
 def phase_build():
-    """Build every kernel; the bf16 flash kernel must hold tensor-core
-    instructions (HGMMA, Hopper's wgmma) and spill nothing."""
+    """Build every kernel; the flash kernels must hold tensor-core
+    instructions and spill nothing: HGMMA (Hopper's wgmma) in each bf16
+    kernel of ``flash_attention_sm90.cu``, HMMA (``mma.sync``) in each
+    instance of ``flash_attention.cu`` (fp32 at every head dim, bf16 at
+    D = 32)."""
     from repro_torch.kernels.common import library
-    from repro_torch.kernels.flash_attention.ops import SM90_HEAD_DIMS
+    from repro_torch.kernels.flash_attention.ops import (
+        HEAD_DIMS,
+        SM90_HEAD_DIMS,
+    )
 
     lib = library()
     report = [ln.strip() for ln in lib.ptxas_report.splitlines()
               if "Compiling entry" in ln or "Used" in ln]
-    so = next(p for p in lib.paths if p.name.startswith("libflash_attention_sm90_"))
-    hgmma = sass_counts(so, "flash_attention_sm90_kernel", "HGMMA")
-    regs = ptxas_entries(lib.ptxas_report, "flash_attention_sm90_kernel")
-    check(len(hgmma) == len(SM90_HEAD_DIMS)
-          and all(n > 0 for n in hgmma.values()),
-          f"HGMMA instructions in the bf16 flash kernels: {hgmma}")
-    # an empty report means the libraries were loaded from an earlier build
-    check(not regs or all(r[1] == 0 and r[2] == 0 for r in regs.values()),
-          f"the bf16 flash kernels spill: {regs}")
+    hgmma, regs = tensor_core_kernels(lib, "flash_attention_sm90",
+                                      "flash_attention_sm90_kernel", "HGMMA",
+                                      len(SM90_HEAD_DIMS))
+    hmma, regs_tc = tensor_core_kernels(lib, "flash_attention",
+                                        "flash_attention_kernel", "HMMA",
+                                        len(HEAD_DIMS) + 1)
     emit("build", seconds=lib.build_seconds,
          libraries=[p.name for p in lib.paths], ptxas=report,
          flash_bf16_hgmma=hgmma,
-         flash_bf16_registers_spill_store_load=regs)
+         flash_bf16_registers_spill_store_load=regs,
+         flash_hmma=hmma, flash_registers_spill_store_load=regs_tc)
 
 
 def paged_inputs(shape, dtype, gen, engine_like: bool, lengths=None):
@@ -2230,9 +2255,15 @@ def time_flash(shape, window, dtype, gen) -> dict:
     q, k, v = flash_inputs(shape, dtype, gen)
     size = q.element_size()
     flops = 4.0 * D * B * H * flash_pairs(Sq, Sk, True, window)
-    b, by = bound_ms(size * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D), flops,
-                     FP32_FLOP_PER_S if dtype == torch.float32
-                     else BF16_FLOP_PER_S)
+    nbytes = size * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
+    if dtype == torch.float32:
+        # fp32 accuracy on the tensor cores takes three TF32 products a
+        # product (3xTF32); the fp32 FMA rate's bound stands beside it
+        b, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        fma_b = flops / FP32_FLOP_PER_S * 1e3
+    else:
+        b, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        fma_b = None
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D)
     if window:
         qpos = torch.arange(Sq, device="cuda")[:, None]
@@ -2249,13 +2280,11 @@ def time_flash(shape, window, dtype, gen) -> dict:
     row = dict(
         shape=list(shape), window=window, dtype=str(dtype),
         ms=median_ms(lambda: flash_attention(q, k, v, window=window), 10),
-        trace=(device_kernels(lambda: flash_attention(q, k, v, window=window))
-               if dtype == torch.bfloat16 else None),
-        library_trace=(device_kernels(library)
-                       if dtype == torch.bfloat16 else None),
+        trace=device_kernels(lambda: flash_attention(q, k, v, window=window)),
+        library_trace=device_kernels(library),
         plain_ms=median_ms(lambda: flash_attention_ref(q, k, v, window=window),
                            3, warmup=1),
-        bound_ms=b, bound_by=by, flops=flops,
+        bound_ms=b, bound_by=by, fma_bound_ms=fma_b, flops=flops,
         library_ms=median_ms(library, 10))
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -2344,12 +2373,15 @@ def phase_timing(paged_args) -> dict:
     del scratch
     torch.cuda.empty_cache()
 
-    # flash attention at the full-width prefill shapes; yi-6b's fp32 row
-    # stands for the kernel in the kernels line
+    # flash attention at the full-width prefill shapes, and in fp32 at the
+    # harness's shape (kernels_micro's launches); yi-6b's fp32 row stands
+    # for the kernel in the kernels line
     for name, (shape, window) in FLASH_FULL.items():
         for dtype in (torch.float32, torch.bfloat16):
             key = f"flash_attention_{name}_{str(dtype)[6:]}"
             out[key] = time_flash(shape, window, dtype, gen)
+    out["flash_attention_micro_float32"] = time_flash(
+        FLASH_MICRO, 0, torch.float32, gen)
     out["flash_attention"] = out["flash_attention_yi-6b_float32"]
     emit("timing", kernels=out)
     return out
@@ -2422,10 +2454,18 @@ def main() -> int:
     paged["olmoe_decode_shape"] = {
         k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "shape", "lengths")}
-    # the main path (kernels_micro) runs flash in fp32; its bf16 kernel, on
-    # the tensor cores, at yi-6b's prefill beside it
+    # the main path (kernels_micro) runs flash in fp32: its bound is three
+    # TF32 products at the tensor cores' rate, the FMA rate's beside it, and
+    # its time at the harness's own shape; the bf16 kernel (wgmma) at yi-6b's
+    # prefill beside it
+    flash = kernels[-1]
+    flash["fma_bound_ms"] = times["flash_attention"]["fma_bound_ms"]
+    t = times["flash_attention_micro_float32"]
+    flash["micro"] = {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "fma_bound_ms",
+                                        "library_ms", "shape")}
     t = times["flash_attention_yi-6b_bfloat16"]
-    kernels[-1]["bf16"] = {
+    flash["bf16"] = {
         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "max_abs_err": errs["flash_attention_bf16"],
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

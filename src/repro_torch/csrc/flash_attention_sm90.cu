@@ -9,7 +9,7 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention_fwd`
 // (src/repro/kernels/flash_attention/flash_attention.py) for bf16 inputs at
-// D in {64, 128, 256}; fp32, and bf16 at D = 32, run the FMA kernel of
+// D in {64, 128, 256}; fp32, and bf16 at D = 32, run the 3xTF32 kernel of
 // csrc/flash_attention.cu. The Pallas kernel walks a (B, H, nQ, nK) grid with
 // the KV blocks innermost, carrying (m, l, acc) in VMEM scratch across grid
 // steps and skipping blocks outside the causal/window band. Here the KV loop
@@ -36,7 +36,7 @@
 // - Warpgroups 0 and 1 are consumers of 64 query rows each (setmaxnreg 240).
 //   S = Q K^T is wgmma m64nBKk16 with both operands K-major from shared
 //   memory, D / 16 steps, fp32 accumulators; bf16 x bf16 products are exact
-//   in fp32, so S differs from the FMA kernel's only in summation order.
+//   in fp32, so S differs from the fp32 reference only in summation order.
 //   The scores are scaled after the product, as Pallas does (by
 //   log2(e) / sqrt(D), for exp2 on the SFU), masked in the accumulator
 //   registers by their (row, column) positions with selects (keys at or
@@ -60,14 +60,14 @@
 //
 // Deliberate difference: P is rounded to bf16 before P V (the Pallas kernel
 // casts v to fp32 and keeps P in fp32, flash_attention.py:50, :70; so does
-// the FMA kernel). It stays within the bf16 tolerance of 2e-2.
+// the 3xTF32 kernel). It stays within the bf16 tolerance of 2e-2.
 //
 // Known limits: one block per SM (384 threads at 168 registers at launch),
 // so each block's start (Q load, first tile without overlap) and its
 // epilogue are not hidden behind another tile, where a persistent kernel
 // would hide them; the output is written from registers with 4-byte
 // stores, not through shared memory and a TMA store; the tensor maps are
-// encoded on the host for each call; D = 32 stays on the FMA kernel (its
+// encoded on the host for each call; D = 32 stays on the 3xTF32 kernel (its
 // 64-byte rows need a 64-byte swizzle, a second layout).
 #include <climits>
 #include <cstdint>

@@ -1,8 +1,8 @@
 """Flash attention forward: CUDA kernels on the card, plain PyTorch on the CPU.
 
-bf16 at D in {64, 128, 256} runs the tensor-core kernel
-(csrc/flash_attention_sm90.cu: TMA, wgmma); fp32, and bf16 at D = 32, the
-FMA kernel (csrc/flash_attention.cu)."""
+bf16 at D in {64, 128, 256} runs csrc/flash_attention_sm90.cu (TMA, wgmma);
+fp32, and bf16 at D = 32, csrc/flash_attention.cu (mma.sync on TF32 pieces,
+three products a fp32 product: 3xTF32). Both are on the tensor cores."""
 from __future__ import annotations
 
 import torch
@@ -43,8 +43,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     i >= Sk + window - 1) differs between the devices: the kernel gives it
     zeros, the plain version the mean of v over all keys. In bf16 at D >= 64
     the kernel rounds the probabilities to bf16 before P V (the tensor
-    cores' operand type); the plain version, the FMA kernel and the JAX
-    package's Pallas kernel keep them in fp32.
+    cores' operand type); the plain version, the fp32/D = 32 kernel and the
+    JAX package's Pallas kernel keep them in fp32 (that kernel splits them
+    into two TF32 pieces, and fp32 q, k, v into two each, so its products
+    keep fp32 accuracy).
 
     CPU tensors run :func:`flash_attention_ref`. CUDA tensors must be
     contiguous, 16-byte aligned and on one card; the kernel runs on the
