@@ -21,8 +21,11 @@ to 12 layers through ``make_train_step``/``Trainer``; the
 ``UMTrainer`` at the paper-scale spec; none of them launches a kernel), the
 launch layer (``repro_torch.launch.train`` on an NCCL world of one rank
 against ``make_train_step``; a data 2 x model 2 world of four processes
-sharing the card over gloo against the one-rank step, with the int8 TP
-all-reduce; full-width yi-6b decode from an int8 KV cache against the fp
+sharing the card over gloo against the one-rank step, with and without
+sequence parallelism of the residual, and the int8 TP all-reduce;
+full-width yi-6b cut to 4 layers on a model 2 world of two processes,
+trained and prefilled with sequence parallelism against the same steps
+without it; full-width yi-6b decode from an int8 KV cache against the fp
 cache; no kernel either), the traffic harness (the burst
 preset over the reduced configs, and a node loss on the two-superchip
 cluster pool), and the benchmark harness (``repro_torch.bench.run``, whose
@@ -197,13 +200,21 @@ UMTRAIN_LOSS_RTOL = 1e-5  # card vs CPU
 # batch, against make_train_step on the same state and batches; (ii) a
 # data 2 x model 2 world of 4 processes sharing the card over gloo (reduced
 # archs, two microbatches) against the one-rank card step, and the int8 TP
-# all-reduce on CUDA tensors against the CPU's; (iii) full-width yi-6b
-# decode from an int8 KV cache against the fp cache, teacher-forced on the
-# fp run's greedy tokens
+# all-reduce on CUDA tensors against the CPU's, each arch with and without
+# sequence parallelism (seq_len 32 splits over the 2 model ranks); (iii)
+# full-width yi-6b decode from an int8 KV cache against the fp cache,
+# teacher-forced on the fp run's greedy tokens; (iv) launch_seqpar:
+# full-width yi-6b cut to 4 layers (1.22 B parameters, half on each rank) on
+# a data 1 x model 2 world of two processes on cuda:0 over gloo, two train
+# steps with remat and a prefill without and then with sequence parallelism
+# from the same weights and batches
 LAUNCH_FULL = dict(steps=2, batch=2, accum=2, seq=2048, layers=12, seed=0)
 LAUNCH_RANKS = dict(data=2, model=2, archs=TRAIN_CPU["archs"], steps=2,
                     batch=4, seq_len=32, grad_accum=2, weights_seed=3)
 LAUNCH_RTOL = TRAIN_CPU_RTOL  # losses, grad norms relative; params of max |param|
+LAUNCH_SEQPAR = dict(arch="yi-6b", layers=4, data=1, model=2, steps=2,
+                     batch=2, seq=2048, seed=0)
+SEQPAR_PREFILL_RTOL = 1e-4  # last logits, caches: of their max |value|
 KV_INT8 = dict(arch="yi-6b", batch=8, prompt_len=922, new_tokens=32, seed=0)
 KV_INT8_SOFTMAX_ATOL = 0.05  # tests/test_model_consistency.py's tolerance
 # At full width and random weights no probability is far above 1/vocab, so
@@ -1630,29 +1641,32 @@ def _launch_ranks_worker(rank: int, port: int, out: str) -> None:
     start_world(rank, L["data"] * L["model"], backend="gloo", port=port)
     try:
         mesh = make_host_mesh(L["data"], L["model"])
-        res = {}
-        for arch in L["archs"]:
-            cfg = get_config(arch).reduced()
-            model = load_jax_params(cfg, numpy_params(cfg, L["weights_seed"],
-                                                      tp=L["model"]),
-                                    "cuda", tp=L["model"])
-            shard_model_(model, mesh)
-            state = make_train_state(cfg, model)
-            step = make_train_step(cfg, make_run_policy(mesh, remat=True),
-                                   TrainerConfig(total_steps=10, warmup_steps=2,
-                                                 grad_accum=L["grad_accum"],
-                                                 tp=L["model"]))
-            ds = SyntheticLM(cfg.vocab_size, L["seq_len"], L["batch"], seed=1,
-                             mean_doc_len=8)
-            metrics, params = [], []
-            for i in range(L["steps"]):
-                toks, labels = (torch.from_numpy(a).cuda() for a in ds.batch(i))
-                state, m = step(state, {"tokens": toks, "labels": labels})
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
-                full = gather_tree(state["params"], model.param_specs, mesh)
-                params.append({k: v.cpu().numpy().copy()
-                               for k, v in flatten(full).items()})
-            res[arch] = (metrics, params)
+        res, staged = {}, {}
+        for sp in (False, True):
+            HOST_STAGED.clear()
+            for arch in L["archs"]:
+                cfg = get_config(arch).reduced()
+                model = load_jax_params(cfg, numpy_params(
+                    cfg, L["weights_seed"], tp=L["model"]), "cuda", tp=L["model"])
+                shard_model_(model, mesh)
+                state = make_train_state(cfg, model)
+                step = make_train_step(
+                    cfg, make_run_policy(mesh, remat=True, sequence_parallel=sp),
+                    TrainerConfig(total_steps=10, warmup_steps=2,
+                                  grad_accum=L["grad_accum"], tp=L["model"]))
+                ds = SyntheticLM(cfg.vocab_size, L["seq_len"], L["batch"], seed=1,
+                                 mean_doc_len=8)
+                metrics, params = [], []
+                for i in range(L["steps"]):
+                    toks, labels = (torch.from_numpy(a).cuda() for a in ds.batch(i))
+                    state, m = step(state, {"tokens": toks, "labels": labels})
+                    metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                    full = gather_tree(state["params"], model.param_specs, mesh)
+                    params.append({k: v.cpu().numpy().copy()
+                                   for k, v in flatten(full).items()})
+                res[(arch, sp)] = (metrics, params)
+            staged["seqpar" if sp else "unsplit"] = dict(HOST_STAGED)
+        HOST_STAGED.clear()
         # the int8 TP all-reduce over the world, on the card and on the CPU
         n = dist.get_world_size()
         y = np.random.default_rng(7).standard_normal(
@@ -1660,22 +1674,25 @@ def _launch_ranks_worker(rank: int, port: int, out: str) -> None:
         ax = Axis(dist.group.WORLD, n, rank)
         q_card = quantized_allreduce(torch.from_numpy(y).cuda(), ax).cpu().numpy()
         q_cpu = quantized_allreduce(torch.from_numpy(y), ax).numpy()
+        staged["q8_allreduce"] = dict(HOST_STAGED)
         if rank == 0:
             torch.save({"archs": res, "q_card": q_card, "q_cpu": q_cpu,
-                        "host_staged": dict(HOST_STAGED)}, out)
+                        "host_staged": staged}, out)
     finally:
         end_world()
 
 
 def phase_launch() -> None:
-    """The launch layer on the card: launch_full, launch_ranks and kv_int8
-    (see LAUNCH_FULL, LAUNCH_RANKS and KV_INT8). Every number is printed
+    """The launch layer on the card: launch_full, launch_ranks,
+    launch_seqpar and kv_int8 (see LAUNCH_FULL, LAUNCH_RANKS, LAUNCH_SEQPAR
+    and KV_INT8). Every number is printed
     with the card's name and power limit."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     launch_full(smi)
     launch_ranks(smi)
+    launch_seqpar(smi)
     kv_int8(smi)
 
 
@@ -1774,10 +1791,11 @@ def launch_full(smi: str) -> None:
 def launch_ranks(smi: str) -> None:
     """A data 2 x model 2 world of 4 processes on cuda:0 over gloo (every
     collective's CUDA tensors staged through the host): each reduced arch
-    two steps of two microbatches against the one-rank card step on the
-    same weights and batches (losses and grad norms within LAUNCH_RTOL,
-    params as ``_adamw_states_close`` at LAUNCH_RTOL); the int8 TP
-    all-reduce on CUDA tensors within one quantization step of the CPU's."""
+    two steps of two microbatches, without and with sequence parallelism,
+    against the one-rank card step on the same weights and batches (losses
+    and grad norms within LAUNCH_RTOL, params as ``_adamw_states_close`` at
+    LAUNCH_RTOL); the int8 TP all-reduce on CUDA tensors within one
+    quantization step of the CPU's."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -1815,19 +1833,20 @@ def launch_ranks(smi: str) -> None:
             ref_m.append((float(m["loss"]), float(m["grad_norm"])))
             lrs.append(float(m["lr"]))
             ref_states.append(numpy_train_state(state))
-        metrics, params = res["archs"][arch]
-        for (gl, gg), (rl, rg) in zip(metrics, ref_m):
-            check(abs(gl - rl) <= LAUNCH_RTOL * abs(rl)
-                  and abs(gg - rg) <= LAUNCH_RTOL * abs(rg),
-                  f"launch_ranks {arch}: loss/grad norm {gl}/{gg} vs one "
-                  f"rank's {rl}/{rg}")
-        states = [{"params/" + k: v for k, v in p.items()} for p in params]
-        rows[arch] = dict(losses=[m[0] for m in metrics],
-                          losses_one_rank=[m[0] for m in ref_m],
-                          grad_norms=[m[1] for m in metrics],
-                          grad_norms_one_rank=[m[1] for m in ref_m],
-                          **_adamw_states_close(f"launch_ranks {arch}",
-                                                ref_states, states, lrs))
+        for sp in (False, True):
+            what = f"launch_ranks {arch}{' seqpar' if sp else ''}"
+            metrics, params = res["archs"][(arch, sp)]
+            for (gl, gg), (rl, rg) in zip(metrics, ref_m):
+                check(abs(gl - rl) <= LAUNCH_RTOL * abs(rl)
+                      and abs(gg - rg) <= LAUNCH_RTOL * abs(rg),
+                      f"{what}: loss/grad norm {gl}/{gg} vs one rank's {rl}/{rg}")
+            states = [{"params/" + k: v for k, v in p.items()} for p in params]
+            rows[f"{arch}{'/seqpar' if sp else ''}"] = dict(
+                losses=[m[0] for m in metrics],
+                losses_one_rank=[m[0] for m in ref_m],
+                grad_norms=[m[1] for m in metrics],
+                grad_norms_one_rank=[m[1] for m in ref_m],
+                **_adamw_states_close(what, ref_states, states, lrs))
     q_card, q_cpu = res["q_card"], res["q_cpu"]
     B, S, d = q_cpu.shape
     step_q = np.abs(q_cpu.reshape(B, S, world, d // world)).max(-1, keepdims=True) / 127
@@ -1841,6 +1860,184 @@ def launch_ranks(smi: str) -> None:
          steps=L["steps"], grad_accum=L["grad_accum"], rtol=LAUNCH_RTOL,
          archs=rows, q8_allreduce=dict(shape=[B, S, d], max_abs_err=q_err,
                                        max_step=float(step_q.max())))
+
+
+def _launch_seqpar_worker(rank: int, port: int, out: str) -> None:
+    """One rank of launch_seqpar's data 1 x model 2 world on cuda:0: the
+    same weights and batches trained without, then with, sequence
+    parallelism (each run's step ms, peak memory and host-staged
+    collectives), the second run's params held to the first's on this
+    rank's shards at each step, then a prefill of the trained model with
+    and without it. Every check compares the world's largest error, so
+    both ranks pass or fail together. Writes ``out``.rank<r>.json."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import end_world, make_host_mesh, start_world
+    from repro_torch.launch.sharding import make_run_policy, shard_model_
+    from repro_torch.models import init_params
+    from repro_torch.models.parallel import HOST_STAGED, Axis, all_reduce_
+    from repro_torch.train import TrainerConfig, make_train_state, make_train_step
+    from repro_torch.tree import flatten
+
+    L = LAUNCH_SEQPAR
+    b2, wd = 0.95, 0.1
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuBLAS keeps its workspace (64 MiB on the H100) once it has run a
+    # product: make it before the first run, so both runs start alike
+    torch.ones((8, 8), device="cuda") @ torch.ones((8, 8), device="cuda")
+    start_world(rank, L["data"] * L["model"], backend="gloo", port=port)
+    try:
+        mesh = make_host_mesh(L["data"], L["model"])
+        world = Axis(dist.group.WORLD, L["data"] * L["model"], rank)
+
+        def world_max(x: float) -> float:
+            t = torch.tensor([x], dtype=torch.float64)
+            return float(all_reduce_(t, world, dist.ReduceOp.MAX))
+
+        cfg = dataclasses.replace(get_config(L["arch"]), num_layers=L["layers"])
+        ds = SyntheticLM(cfg.vocab_size, L["seq"], L["batch"], seed=L["seed"])
+        batches = [ds.batch(i) for i in range(L["steps"])]
+        tc = TrainerConfig(lr=3e-4, total_steps=L["steps"], warmup_steps=1,
+                           weight_decay=wd, tp=L["model"])
+        runs, ref, ill = {}, [], []
+        for sp in (False, True):
+            model = init_params(cfg, seed=L["seed"], tp=L["model"], device="cuda")
+            shard_model_(model, mesh)
+            torch.cuda.empty_cache()
+            state = make_train_state(cfg, model)
+            step = make_train_step(
+                cfg, make_run_policy(mesh, remat=True, sequence_parallel=sp), tc)
+            HOST_STAGED.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            metrics, step_ms, lrs, errs = [], [], [], []
+            for i, (toks, labels) in enumerate(batches):
+                batch = {"tokens": torch.from_numpy(toks).cuda(),
+                         "labels": torch.from_numpy(labels).cuda()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                lrs.append(float(m["lr"]))
+                params = flatten(state["params"])
+                with torch.no_grad():
+                    if not sp:  # the reference: params and ill-conditioned weights
+                        ref.append({k: p.to("cpu", copy=True)
+                                    for k, p in params.items()})
+                        v = flatten(state["opt"]["v"])
+                        ill.append({k: ((v[k] / (1 - b2 ** (i + 1))).sqrt()
+                                        < ADAMW_ILL).cpu() | (ill[-1][k] if ill
+                                                              else False)
+                                    for k in params})
+                        continue
+                    worst = worst_ill = 0.0
+                    for k, p in params.items():
+                        d = (p - ref[i][k].cuda()).abs()
+                        bad = ill[i][k].cuda()
+                        worst = max(worst, float(d[~bad].max())
+                                    if (~bad).any() else 0.0)
+                        worst_ill = max(worst_ill, float(d[bad].max())
+                                        if bad.any() else 0.0)
+                    scale = world_max(max(float(t.abs().max())
+                                          for t in ref[i].values()))
+                    worst, worst_ill = world_max(worst), world_max(worst_ill)
+                    check(worst <= LAUNCH_RTOL * scale,
+                          f"launch_seqpar: step {i + 1} params differ by "
+                          f"{worst} > {LAUNCH_RTOL * scale}")
+                    check(worst_ill <= 2 * (1 + wd) * sum(lrs) + LAUNCH_RTOL * scale,
+                          f"launch_seqpar: step {i + 1} params past the AdamW bound")
+                    errs.append(dict(max_err_of_max_param=worst / scale,
+                                     max_err_ill=worst_ill))
+            runs["seqpar" if sp else "unsplit"] = dict(
+                losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
+                step_ms=step_ms, peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                start_device_gb=start / 1e9, host_staged=dict(HOST_STAGED),
+                param_errs=errs)
+            if not sp:  # nothing of the first run stays on the card
+                del state, step, model, params, v, m
+                torch.cuda.empty_cache()
+        # the trained model's prefill without and with sequence parallelism
+        toks = torch.from_numpy(batches[0][0]).cuda()
+        outs, prefill = [], {}
+        for sp in (False, True):
+            HOST_STAGED.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(model.prefill(toks, make_run_policy(mesh, sequence_parallel=sp)))
+            torch.cuda.synchronize()
+            prefill["seqpar" if sp else "unsplit"] = dict(
+                ms=(time.perf_counter() - t0) * 1e3, host_staged=dict(HOST_STAGED))
+        (la, ca), (lb, cb) = outs
+        pairs = [(ca[i][k], cb[i][k]) for i in range(len(ca)) for k in ca[i]]
+        got = dict(logit_err=world_max(float((la - lb).abs().max())),
+                   logit_scale=world_max(float(la.abs().max())),
+                   cache_err=world_max(max(float((a - b).abs().max())
+                                           for a, b in pairs)),
+                   cache_scale=world_max(max(float(a.abs().max()) for a, _ in pairs)))
+        check(got["logit_err"] <= SEQPAR_PREFILL_RTOL * got["logit_scale"]
+              and got["cache_err"] <= SEQPAR_PREFILL_RTOL * got["cache_scale"],
+              f"launch_seqpar: the seqpar prefill differs: {got}")
+        prefill.update(got)
+        with open(f"{out}.rank{rank}.json", "w") as f:
+            json.dump({"runs": runs, "prefill": prefill}, f)
+    finally:
+        end_world()
+
+
+def launch_seqpar(smi: str) -> None:
+    """Full-width yi-6b cut to 4 layers on a data 1 x model 2 world of two
+    processes on cuda:0 over gloo: two train steps with remat, then a
+    prefill, without and with sequence parallelism from the same weights and
+    batches. Losses and grad norms within LAUNCH_RTOL, params within
+    LAUNCH_RTOL of max |param| (the AdamW bound where the first run's update
+    is ill-conditioned), last logits and caches within SEQPAR_PREFILL_RTOL of
+    their max |value|; step ms, each rank's peak memory and the collectives
+    staged through the host printed for each run."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import free_port
+
+    L = LAUNCH_SEQPAR
+    held_bytes_ok("launch_seqpar's world starts")
+    world = L["data"] * L["model"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "seqpar")
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_launch_seqpar_worker, nprocs=world,
+                                    args=(free_port(), path))
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(Path(f"{path}.rank{r}.json").read_text())
+                 for r in range(world)]
+    runs = ranks[0]["runs"]
+    a, b = runs["unsplit"], runs["seqpar"]
+    for t, pair in enumerate(zip(b["losses"], a["losses"], b["grad_norms"],
+                                 a["grad_norms"]), 1):
+        gl, rl, gg, rg = pair
+        check(abs(gl - rl) <= LAUNCH_RTOL * abs(rl)
+              and abs(gg - rg) <= LAUNCH_RTOL * abs(rg),
+              f"launch_seqpar: step {t} loss/grad norm {gl}/{gg} vs {rl}/{rg} "
+              f"without sequence parallelism")
+    for name, run in runs.items():
+        for key in ("peak_device_gb", "start_device_gb"):
+            run[key] = [r["runs"][name][key] for r in ranks]
+        run["peak_over_start_gb"] = [p - s for p, s in zip(run["peak_device_gb"],
+                                                          run["start_device_gb"])]
+    cfg = dataclasses.replace(get_config(L["arch"]), num_layers=L["layers"])
+    emit("launch_seqpar", card=smi, arch=L["arch"], layers=L["layers"],
+         params=cfg.param_count(), world=world, mesh="1x2", backend="gloo",
+         device="cuda:0 for both ranks", batch=L["batch"], seq_len=L["seq"],
+         steps=L["steps"], remat=True, rtol=LAUNCH_RTOL, wall_s=wall,
+         runs=runs, prefill=ranks[0]["prefill"],
+         prefill_rtol=SEQPAR_PREFILL_RTOL)
 
 
 def kv_int8(smi: str) -> None:

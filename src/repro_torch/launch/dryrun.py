@@ -14,8 +14,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k [--multi-pod]
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out experiments/dryrun_torch]
   python -m repro_torch.launch.dryrun --all --both-meshes
-Perf-variant knobs: --attn-block, --kv-int8, --q8-collectives, --moe-sorted,
---tag. (The reference's --seqpar, sequence parallelism, is not ported.)
+Perf-variant knobs: --attn-block, --seqpar (sequence parallelism of the
+residual), --kv-int8, --q8-collectives, --moe-sorted, --tag.
 """
 from __future__ import annotations
 
@@ -54,11 +54,13 @@ def _fake_world(world_size: int) -> None:
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
-             attn_block: int = 4096, tag: str = "baseline",
+             attn_block: int = 4096, seqpar: bool = False,
+             tag: str = "baseline",
              artifacts=None, force: bool = False, verbose: bool = True,
              extra_policy=None, layers: int = 0):
     """Trace one cell and write its record (``layers`` > 0 cuts the depth,
-    recorded as ``meta['layers']``)."""
+    recorded as ``meta['layers']``; ``seqpar`` runs it under sequence
+    parallelism, recorded as ``meta['sequence_parallel']``)."""
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -94,10 +96,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
     with FakeTensorMode():
         t0 = time.time()
         arts = make_artifacts(cfg, shape, mesh, attn_block=attn_block,
+                              sequence_parallel=seqpar,
                               extra_policy=extra_policy)
         build_s = time.time() - t0
         rec["meta"] = dict(arts.pop("__meta__", {}),
-                           **({"layers": layers} if layers else {}))
+                           **({"layers": layers} if layers else {}),
+                           **({"sequence_parallel": True} if seqpar else {}))
         mem_name, mem_over = arts.pop("__memory__")
         arg_bytes = arts.pop("__arguments__")
         live = LiveBytes()  # one count over the artifacts of the cell
@@ -161,6 +165,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--attn-block", type=int, default=4096)
+    ap.add_argument("--seqpar", action="store_true")
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--q8-collectives", action="store_true")
     ap.add_argument("--moe-sorted", action="store_true")
@@ -193,7 +198,8 @@ def main(argv=None) -> int:
             for mp in meshes:
                 try:
                     run_cell(arch, shape_name, multi_pod=mp, out_dir=args.out,
-                             attn_block=args.attn_block, tag=args.tag,
+                             attn_block=args.attn_block, seqpar=args.seqpar,
+                             tag=args.tag,
                              artifacts=args.artifacts, force=args.force,
                              extra_policy=extra or None, layers=args.layers)
                 except Exception:  # noqa: BLE001 -- report the cell, go on

@@ -229,17 +229,21 @@ def tp_shard_nodes(tp: int, nodes: int) -> Tuple[int, ...]:
 
 def make_run_policy(mesh, *, remat: bool = False,
                     attn_q_block: int = 0, attn_kv_block: int = 0,
+                    sequence_parallel: bool = False,
                     quantize_tp_collectives: bool = False,
                     kv_cache_quant: bool = False,
                     moe_impl: str = "dense") -> RunPolicy:
     """The run policy of a step on ``mesh`` (None: one device). Under a
-    mesh every step splits its batch over the DP axes."""
+    mesh every step splits its batch over the DP axes, and with
+    ``sequence_parallel`` the residual of a sequence that the model axis
+    divides over its positions (the reference's ``make_constrain``)."""
     from repro_torch.models.transformer import set_policy_tp
 
     pol = RunPolicy(
         remat=remat,
         attn_q_block=attn_q_block,
         attn_kv_block=attn_kv_block,
+        sequence_parallel=sequence_parallel and mesh is not None,
         quantize_tp_collectives=quantize_tp_collectives and mesh is not None,
         kv_cache_quant=kv_cache_quant,
         moe_impl=moe_impl,

@@ -13,6 +13,8 @@ local inputs, and returns the artifacts of the cell's kind as callables:
   prefill -> 'prefill' (block-causal attention beyond ``attn_block``)
   decode  -> 'decode'  (one token against a dense cache)
 
+each under ``sequence_parallel`` where asked (the residual split on the
+sequence over the model axis; decode, at one token, runs as without it),
 plus ``__meta__`` (``accum``, ``micro``: the microbatch loop of a train cell)
 and ``__memory__`` ('train_memory', 'prefill_memory' or 'decode_memory':
 the artifacts whose one trace gives the cell's peak memory). A torch trace
@@ -61,6 +63,7 @@ def _local_rows(mesh, B: int) -> int:
 
 def make_artifacts(cfg: ArchConfig, shape: RunShape, mesh, *,
                    dtype=torch.bfloat16, attn_block: int = 4096,
+                   sequence_parallel: bool = False,
                    extra_policy: Optional[Dict[str, Any]] = None
                    ) -> Dict[str, Any]:
     """{artifact: callable, '__meta__': {...}, '__memory__': (name,
@@ -71,7 +74,8 @@ def make_artifacts(cfg: ArchConfig, shape: RunShape, mesh, *,
     blk = min(attn_block, S)
     pol_kw = dict(remat=False,
                   attn_q_block=blk if S > attn_block else 0,
-                  attn_kv_block=blk if S > attn_block else 0)
+                  attn_kv_block=blk if S > attn_block else 0,
+                  sequence_parallel=sequence_parallel)
     if extra_policy:
         pol_kw.update(extra_policy)
     model = TransformerLM(cfg, tp=tp, dtype=dtype, device="cpu")

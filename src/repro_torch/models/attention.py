@@ -13,9 +13,11 @@ Under a mesh (``RunPolicy.mesh``) the heads split over the model axis as
 the exact TP layout (``HeadLayout``) lets them: this rank computes its
 ``n_q_eff / tp`` q heads over its ``n_kv_eff / tp`` kv heads, and the output
 projection is row-parallel (an all-reduce, or the int8 two-phase reduce
-under ``quantize_tp_collectives``). A dense ``attention`` cache may be int8
-(``init_cache(kv_quant=True)``): each new token's k and v are quantized per
-(token, head) on write, and the cache is dequantized on read.
+under ``quantize_tp_collectives``). Under sequence parallelism the input
+is all-gathered on the sequence and the output reduce-scattered on it. A
+dense ``attention`` cache may be int8 (``init_cache(kv_quant=True)``): each
+new token's k and v are quantized per (token, head) on write, and the cache
+is dequantized on read.
 
 The projections and ``_sdpa`` are plain large products (``torch.einsum``),
 as the JAX package leaves them to XLA. Paged decode attention, the serve
@@ -39,7 +41,7 @@ from repro_torch.models.layers import (
     row_parallel,
 )
 from repro_torch.models.layout import HeadLayout
-from repro_torch.models.parallel import copy_to, param_local, tp_axis
+from repro_torch.models.parallel import copy_in, copy_to, param_local, tp_axis
 
 
 def _einsum_f32(spec: str, a, b):
@@ -93,13 +95,14 @@ class Attention(nn.Module):
         for p, w in ((self.wq, wq), (self.wk, wk), (self.wv, wv), (self.wo, wo)):
             p.copy_(w)
 
-    def project_qkv(self, x, positions, policy: RunPolicy = None):
+    def project_qkv(self, x, positions, policy: RunPolicy = None, seq=None):
         """``_project_qkv``: x (B,S,d) -> q (B,S,N,P,D), k, v (B,S,N,D);
-        RoPE applied. Under a mesh N is this rank's kv heads."""
+        RoPE applied at ``positions`` (S,). Under a mesh N is this rank's kv
+        heads; with ``seq`` x is this rank's positions, gathered over it."""
         cfg, lay = self.cfg, self.layout
-        B, S, _ = x.shape
         ax = tp_axis(policy)
-        x = copy_to(x, ax)
+        x = copy_in(x, ax, seq)
+        B, S, _ = x.shape
         nq, nkv = lay.n_q_eff, lay.n_kv_eff
 
         def heads(p, full, dim=1):
@@ -120,9 +123,9 @@ class Attention(nn.Module):
             k = rope_apply(k, positions, cfg.rope_theta)
         return q.reshape(B, S, k.shape[2], lay.p, cfg.head_dim), k, v
 
-    def out_proj(self, o, policy: RunPolicy):
+    def out_proj(self, o, policy: RunPolicy, seq=None):
         """``_out_proj``: o (B,S,...,D) with n_q_eff heads (this rank's,
-        under a mesh) -> (B,S,d)."""
+        under a mesh) -> (B,S,d); with ``seq``, this rank's positions."""
         require_no_mesh_options(policy)
         B, S = o.shape[:2]
         D = self.cfg.head_dim
@@ -132,22 +135,24 @@ class Attention(nn.Module):
             return torch.einsum("bshe,hed->bsd", o, self.wo)
         wo = param_local(self.wo, 0, self.layout.n_q_eff, ax)
         return row_parallel(o.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]),
-                            policy, ax)
+                            policy, ax, seq)
 
-    def forward(self, x, policy: RunPolicy, positions, window: int = 0
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x, policy: RunPolicy, positions, window: int = 0,
+                seq=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``attn_apply``: causal self-attention over x (B,S,d) at
         ``positions`` (S,), over the last ``window`` keys when window > 0;
-        returns the output and the sequence's {'k', 'v'} (B,S,N,D)."""
-        S = x.shape[1]
-        q, k, v = self.project_qkv(x, positions, policy)
+        returns the output and the sequence's {'k', 'v'} (B,S,N,D). With
+        ``seq`` x and the output are this rank's positions of the sequence
+        (the caches stay whole)."""
+        q, k, v = self.project_qkv(x, positions, policy, seq)
+        S = q.shape[1]
         qb = policy.attn_q_block
         if qb and S > qb:
             o = _blocked_causal(q, k, v, qb, policy.attn_kv_block or qb, window)
         else:
             ar = torch.arange(S, device=x.device)
             o = _sdpa(q, k, v, _causal_bias(ar, ar, window))
-        return self.out_proj(o, policy), {"k": k, "v": v}
+        return self.out_proj(o, policy, seq), {"k": k, "v": v}
 
     def decode(self, x, pos, cache: Dict[str, torch.Tensor], policy: RunPolicy,
                window: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -11,9 +11,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.parallel import (
+    copy_in,
     copy_to,
+    local_slice,
     param_local,
     reduce_from,
+    reduce_scatter_from,
     split_local,
     tp_axis,
 )
@@ -39,9 +42,13 @@ class RunPolicy:
     ``quantize_tp_collectives`` replaces the row-parallel all-reduces by the
     int8 two-phase reduce (``models/qcomm.py``) and needs a mesh.
     ``kv_cache_quant`` asks for int8 KV caches (``init_cache(kv_quant=True)``;
-    decode follows the cache it is given). The JAX package's
-    ``onehot_embed`` and ``constrain`` have no counterpart: the embedding's
-    shape shows whether its vocab is sharded, and explicit shards fix every
+    decode follows the cache it is given). ``sequence_parallel`` splits the
+    residual of a sequence that the model axis divides on its positions
+    (``models/parallel.py``): the JAX package's ``constrain`` of the
+    ``"residual"`` activation to ``P(dp, "model", None)``, as explicit
+    collectives. The JAX package's ``onehot_embed`` and its other
+    ``constrain`` names have no counterpart: the embedding's shape shows
+    whether its vocab is sharded, and explicit shards fix every other
     activation layout in the blocks."""
 
     remat: bool = False
@@ -52,6 +59,7 @@ class RunPolicy:
     quantize_tp_collectives: bool = False  # int8 two-phase TP all-reduce
     kv_cache_quant: bool = False  # int8 KV cache (decode memory term)
     moe_impl: str = "dense"  # dense (GShard einsum) | sorted (scatter)
+    sequence_parallel: bool = False  # residual split on S over 'model'
     mesh: Any = None
 
 
@@ -62,17 +70,22 @@ def require_no_mesh_options(policy: RunPolicy) -> None:
             "(launch.sharding.make_run_policy)")
 
 
-def row_parallel(h, w, policy: RunPolicy, axis):
-    """h (..., K_local) @ w (K_local, d), summed over ``axis`` when the
+def row_parallel(h, w, policy: RunPolicy, axis, seq=None):
+    """h (B, S, K_local) @ w (K_local, d), summed over ``axis`` when the
     contraction is split over it: by all-reduce, or by the int8 two-phase
     reduce under ``policy.quantize_tp_collectives`` -- an inference lever:
-    a pass that records grads keeps the exact all-reduce."""
+    a pass that records grads keeps the exact all-reduce. With ``seq`` (the
+    residual seq-split over it) this rank's positions of the sum: by
+    reduce-scatter, or the int8 reduce's local positions."""
     if axis is None:
         return h @ w
     if policy.quantize_tp_collectives and not torch.is_grad_enabled():
         from repro_torch.models.qcomm import rowparallel_matmul_q8
 
-        return rowparallel_matmul_q8(h, w, axis, h.dtype)
+        y = rowparallel_matmul_q8(h, w, axis, h.dtype)
+        return y if seq is None else local_slice(y, 1, seq)
+    if seq is not None:
+        return reduce_scatter_from(h @ w, 1, seq)
     return reduce_from(h @ w, axis)
 
 
@@ -131,10 +144,12 @@ class Norm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(d, dtype=dtype, device=device),
                                      requires_grad=False)
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
+        """Over the positions of x; with ``seq`` (x seq-split over it) the
+        replicated scale and bias sum their grads over it."""
         if self.kind == "rmsnorm":
-            return rmsnorm(x, self.scale)
-        return layernorm(x, self.scale, self.bias)
+            return rmsnorm(x, copy_to(self.scale, seq))
+        return layernorm(x, copy_to(self.scale, seq), copy_to(self.bias, seq))
 
 
 # ---------------------------------------------------------------------------
@@ -204,24 +219,30 @@ class MLP(nn.Module):
             if w is not None:
                 w.copy_(dense_init(gen, tuple(w.shape), w.dtype))
 
-    def forward(self, x, policy: RunPolicy):
+    def forward(self, x, policy: RunPolicy, seq=None):
         """Column-parallel up/gate and row-parallel down projection over the
-        model axis where it divides d_ff; replicated otherwise."""
+        model axis where it divides d_ff; replicated otherwise. With ``seq``
+        (x seq-split over it) the split MLP reads the whole sequence and
+        gives this rank's positions; the replicated one runs on them."""
         require_no_mesh_options(policy)
         ax = tp_axis(policy)
         ax = ax if split_local(self.cfg_d_ff, ax) else None
-        x = copy_to(x, ax)
+        if ax is not None:
+            x = copy_in(x, ax, seq)
+
+        def part(w, dim):  # replicated weights on local positions: copy_to
+            if ax is None:
+                return copy_to(w, seq)
+            return param_local(w, dim, self.cfg_d_ff, ax)
 
         def col(w):
-            return x @ param_local(w, -1, self.cfg_d_ff, ax)
+            return x @ part(w, -1)
 
         if self.act in ("swiglu", "geglu"):
             g = col(self.w_gate)
             g = F.silu(g) if self.act == "swiglu" else F.gelu(g, approximate="tanh")
             h = g * col(self.w_up)
         else:
-            b = param_local(self.b_up, 0, self.cfg_d_ff, ax)
-            h = F.gelu(col(self.w_up) + b, approximate="tanh")
-        y = row_parallel(h, param_local(self.w_down, 0, self.cfg_d_ff, ax),
-                         policy, ax)
-        return y if self.act != "gelu" else y + self.b_down
+            h = F.gelu(col(self.w_up) + part(self.b_up, 0), approximate="tanh")
+        y = row_parallel(h, part(self.w_down, 0), policy, ax, seq)
+        return y if self.act != "gelu" else y + copy_to(self.b_down, seq)

@@ -21,6 +21,10 @@ routings of its slot and all ranks' of earlier slots (one all-gather of the
 per-(slot, expert) counts), so the drops are those of one device. The
 sorted path under tensor parallelism is the reference's shard_map expert
 parallelism (``_moe_sorted_ep``): capacity and positions per data shard.
+Under sequence parallelism the layer gathers its input's sequence before it
+routes (capacity counts the tokens routed together, so routing the local
+positions alone would change the drops) and reduce-scatters its output on
+the sequence in place of the all-reduce.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from repro_torch.models.parallel import (
     dp_axis,
     gather_from,
     local_slice,
-    reduce_from,
+    reduce_out,
     tp_axis,
 )
 
@@ -115,15 +119,19 @@ def _experts(p, xe, dtype):
     return _einsum("ecf,efd->ecd", h, p["w_down"]).to(dtype)
 
 
-def moe_apply(cfg, p, x, policy: RunPolicy, tp: int = 1
+def moe_apply(cfg, p, x, policy: RunPolicy, tp: int = 1, seq=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> (y, aux) through ``policy.moe_impl``."""
+    """x (B,S,d) -> (y, aux) through ``policy.moe_impl``; with ``seq`` x
+    and y are this rank's positions of the sequence, gathered over it to
+    route."""
     require_no_mesh_options(policy)
+    if seq is not None:
+        x = gather_from(x, 1, seq)
     if policy.moe_impl == "sorted":
         if tp_axis(policy) is not None:
-            return _moe_sorted_ep(cfg, p, x, policy, tp)
+            return _moe_sorted_ep(cfg, p, x, policy, tp, seq)
         return moe_apply_sorted(cfg, p, x, policy, tp=tp)
-    return moe_apply_dense(cfg, p, x, policy, tp=tp)
+    return moe_apply_dense(cfg, p, x, policy, tp=tp, seq=seq)
 
 
 def moe_apply_sorted(cfg, p, x, policy: RunPolicy, tp: int = 1
@@ -189,7 +197,7 @@ def _sorted_experts(p, xt, e_sorted, t_sorted, g_sorted, pos_in_e, e_lo: int,
     return y.index_add(0, t_sorted, contrib)
 
 
-def _moe_sorted_ep(cfg, p, x, policy: RunPolicy, tp: int
+def _moe_sorted_ep(cfg, p, x, policy: RunPolicy, tp: int, seq=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism for the sorted dispatch (the reference's
     shard_map): each model rank routes its data shard's tokens with the
@@ -208,10 +216,10 @@ def _moe_sorted_ep(cfg, p, x, policy: RunPolicy, tp: int
     y = _sorted_experts(_local_experts(p, E, ax), copy_to(xt, ax), e_sorted,
                         t_sorted, copy_to(g_sorted, ax), pos_in_e,
                         ax.rank * E_loc, E_loc, cap, x.dtype)
-    y = reduce_from(y, ax)
+    y = reduce_out(y.reshape(B, S, d), ax, seq)
     dp = dp_axis(policy)
     aux = _aux(cfg, probs, idx, E, RunPolicy())
-    return y.reshape(B, S, d), aux / (dp.size if dp is not None else 1)
+    return y, aux / (dp.size if dp is not None else 1)
 
 
 def _local_experts(p, E: int, ax):
@@ -222,10 +230,11 @@ def _local_experts(p, E: int, ax):
             for k, v in p.items()}
 
 
-def moe_apply_dense(cfg, p, x, policy: RunPolicy, tp: int = 1
+def moe_apply_dense(cfg, p, x, policy: RunPolicy, tp: int = 1, seq=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (y, aux) by dense GShard dispatch and combine einsums.
-    Capacity-dropped routings pass through (residual)."""
+    Capacity-dropped routings pass through (residual). With ``seq`` y is
+    this rank's positions."""
     B, S, d = x.shape
     E = num_experts_eff(cfg, tp)
     T = B * S
@@ -247,8 +256,8 @@ def moe_apply_dense(cfg, p, x, policy: RunPolicy, tp: int = 1
     xe = _einsum("tec,td->ecd", dispatch, xt).to(x.dtype)
     ye = _experts(p, xe, x.dtype)
     y = _einsum("tec,ecd->td", combine.to(x.dtype), ye).to(x.dtype)
-    y = reduce_from(y, ax)
-    return y.reshape(B, S, d), _aux(cfg, probs, idx, E, policy)
+    y = reduce_out(y.reshape(B, S, d), ax, seq)
+    return y, _aux(cfg, probs, idx, E, policy)
 
 
 def _dense_plan(idx, gate_vals, E: int, cfg, policy: RunPolicy):
@@ -272,10 +281,15 @@ def _dense_plan(idx, gate_vals, E: int, cfg, policy: RunPolicy):
     return gate_te, hit_te * (pos_te < cap).float(), pos_te, cap
 
 
-def moe_kept(cfg, p, x, policy: RunPolicy, tp: int = 1) -> torch.Tensor:
+def moe_kept(cfg, p, x, policy: RunPolicy, tp: int = 1, seq=None
+             ) -> torch.Tensor:
     """The dense path's drops: a bool (T, K) of the routings (token, slot,
-    highest gate first) that fit their expert's capacity."""
+    highest gate first) that fit their expert's capacity. With ``seq`` x
+    is this rank's positions, gathered to route as :func:`moe_apply`
+    gathers them (T counts the whole sequence)."""
     E = num_experts_eff(cfg, tp)
+    if seq is not None:
+        x = gather_from(x, 1, seq)
     xt = x.reshape(-1, x.shape[-1])
     _, gate_vals, idx = _route(cfg, p, xt, E, policy)
     _, within, _, _ = _dense_plan(idx, gate_vals, E, cfg, policy)
@@ -319,7 +333,9 @@ class MoE(nn.Module):
             part = w[:, :E0] if name == "router" else w[:E0]
             part.copy_(dense_init(gen, shape, w.dtype, in_axis_size=fan_in))
 
-    def forward(self, x, policy: RunPolicy, with_aux: bool = False):
-        """y, or (y, the load-balance loss) with ``with_aux``."""
-        y, aux = moe_apply(self.cfg, self.params(), x, policy, tp=self.tp)
+    def forward(self, x, policy: RunPolicy, with_aux: bool = False, seq=None):
+        """y, or (y, the load-balance loss) with ``with_aux``; ``seq`` as
+        :func:`moe_apply`'s."""
+        y, aux = moe_apply(self.cfg, self.params(), x, policy, tp=self.tp,
+                           seq=seq)
         return (y, aux) if with_aux else y

@@ -21,6 +21,24 @@ Autograd through a collective follows the conjugate pairs of Megatron-LM:
 * :func:`gather_from` -- all-gather forward, this rank's slice of the
   gradient backward: a sharded activation that replicated work reads whole.
 
+Under sequence parallelism (``RunPolicy.sequence_parallel``; :func:`seq_axis`
+says where it applies) the residual between blocks, and between a block's
+mixer and its FFN, is split on the sequence over the model axis: each rank
+holds ``S / tp`` consecutive positions, in rank order. Megatron-LM's
+sequence-parallel pairs then take the place of the two above:
+
+* :func:`gather_to` -- all-gather on S forward, reduce-scatter of the
+  gradient backward: the input of a column-parallel region, whose ranks
+  each hold a partial gradient of the whole sequence.
+* :func:`reduce_scatter_from` -- reduce-scatter on S forward, all-gather
+  of the gradient backward: the end of a row-parallel region.
+* :func:`scatter_to` -- this rank's positions forward, all-gather of the
+  gradient backward: a replicated tensor made seq-split.
+
+:func:`copy_in` and :func:`reduce_out` pick the pair of a region's entry
+and exit. A replicated parameter applied to seq-split activations passes
+:func:`copy_to`, so that its gradient is summed over the model axis.
+
 (``torch.distributed.nn.functional.all_reduce`` all-reduces the gradient
 too, which makes it ``n`` times too large where the upstream gradient is
 replicated.) A replicated tensor thus always carries its whole gradient,
@@ -91,6 +109,26 @@ def all_gather(t: torch.Tensor, dim: int, axis: Optional[Axis]) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def reduce_scatter(t: torch.Tensor, dim: int, axis: Optional[Axis]
+                   ) -> torch.Tensor:
+    """The sum of the ``axis.size`` ranks' ``t``, cut into ``axis.size``
+    equal pieces along ``dim`` (which it must divide): this rank's piece
+    (no autograd)."""
+    if axis is None or axis.size == 1:
+        return t
+    dim = dim % t.dim()
+    src = t.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // axis.size,) + tuple(src.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    if _staged(t, axis.group, "reduce_scatter_tensor"):
+        h = torch.empty(out.shape, dtype=t.dtype)
+        dist.reduce_scatter_tensor(h, src.cpu(), group=axis.group)
+        out.copy_(h)
+    else:
+        dist.reduce_scatter_tensor(out, src, group=axis.group)
+    return out.movedim(0, dim)
+
+
 def all_to_all(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Piece j of dim 0 (``axis.size`` equal pieces) goes to rank j; the
     result's piece i came from rank i (no autograd)."""
@@ -144,6 +182,39 @@ class _GatherFrom(torch.autograd.Function):
         return local_slice(g, ctx.dim, ctx.axis).contiguous(), None, None
 
 
+class _GatherTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.axis), None, None
+
+
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return reduce_scatter(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.axis), None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return local_slice(x, dim, axis).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.axis), None, None
+
+
 def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     if axis is None or axis.size == 1:
         return x
@@ -162,6 +233,49 @@ def gather_from(x: torch.Tensor, dim: int, axis: Optional[Axis]) -> torch.Tensor
     return _GatherFrom.apply(x, dim % x.dim(), axis)
 
 
+def gather_to(x: torch.Tensor, dim: int, axis: Optional[Axis]) -> torch.Tensor:
+    if axis is None or axis.size == 1:
+        return x
+    return _GatherTo.apply(x, dim % x.dim(), axis)
+
+
+def reduce_scatter_from(x: torch.Tensor, dim: int,
+                        axis: Optional[Axis]) -> torch.Tensor:
+    if axis is None or axis.size == 1:
+        return x
+    return _ReduceScatterFrom.apply(x, dim % x.dim(), axis)
+
+
+def scatter_to(x: torch.Tensor, dim: int, axis: Optional[Axis]) -> torch.Tensor:
+    if axis is None or axis.size == 1:
+        return x
+    return _ScatterTo.apply(x, dim % x.dim(), axis)
+
+
+def copy_in(x: torch.Tensor, axis: Optional[Axis],
+            seq: Optional[Axis] = None) -> torch.Tensor:
+    """The entry of a region split over ``axis`` (None: replicated work) of
+    an activation (B,S,...) that is seq-split over ``seq``, or whole
+    (``seq`` None): :func:`copy_to`, else the whole sequence by
+    :func:`gather_to` (split work) or :func:`gather_from` (replicated)."""
+    if seq is None:
+        return copy_to(x, axis)
+    return gather_to(x, 1, seq) if axis is not None else gather_from(x, 1, seq)
+
+
+def reduce_out(x: torch.Tensor, axis: Optional[Axis],
+               seq: Optional[Axis] = None) -> torch.Tensor:
+    """The exit of such a region, (B,S,...) over the whole sequence:
+    :func:`reduce_from`, or this rank's positions of the sum by
+    :func:`reduce_scatter_from` (split work) or :func:`scatter_to`
+    (replicated)."""
+    if seq is None:
+        return reduce_from(x, axis)
+    if axis is None:
+        return scatter_to(x, 1, seq)
+    return reduce_scatter_from(x, 1, seq)
+
+
 def tp_axis(policy, sharded: bool = True) -> Optional[Axis]:
     """The model axis of ``policy.mesh`` where a module's work is split over
     it (``sharded``), else None: the module then runs replicated."""
@@ -169,6 +283,17 @@ def tp_axis(policy, sharded: bool = True) -> Optional[Axis]:
     if mesh is None or not sharded or mesh.tp.size == 1:
         return None
     return mesh.tp
+
+
+def seq_axis(policy, S: int) -> Optional[Axis]:
+    """The model axis where sequence parallelism splits a residual of ``S``
+    positions over it (``policy.sequence_parallel``, a model axis of more
+    than one rank that divides S), else None: the residual is whole."""
+    ax = tp_axis(policy)
+    if ax is None or not getattr(policy, "sequence_parallel", False) \
+            or S % ax.size:
+        return None
+    return ax
 
 
 def dp_axis(policy) -> Optional[Axis]:

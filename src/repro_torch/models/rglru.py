@@ -6,6 +6,12 @@ with block-diagonal (per-head) input and recurrence gates. Over a sequence
 the linear recurrence runs as a log-depth scan (:func:`linear_scan`, in
 place of ``jax.lax.associative_scan``); decode is one step carrying (h, the
 conv window). The reference has no Pallas kernel here; this is plain torch.
+
+Under a mesh the lru width splits over the model axis where it divides it
+(``w_y``/``w_gate`` column-parallel, ``w_out`` row-parallel, the gates and
+the conv per channel); under sequence parallelism the input's sequence is
+gathered on entry (the conv and the scan run over all of it) and the
+output reduce-scattered on it.
 """
 from __future__ import annotations
 
@@ -17,11 +23,12 @@ from torch import nn
 
 from repro_torch.models.layers import RunPolicy, dense_init
 from repro_torch.models.parallel import (
+    copy_in,
     copy_to,
     gather_from,
     local_slice,
     param_local,
-    reduce_from,
+    reduce_out,
     split_local,
     tp_axis,
 )
@@ -143,27 +150,30 @@ class RgLru(nn.Module):
             out = out + shifted * conv_w[cw - 1 - k]
         return out + self._p("conv_b", 0, ax)
 
-    def _in(self, x, ax):
-        """The two column-parallel input branches: y and the fp32 gelu gate."""
-        x = copy_to(x, ax)
+    def _in(self, x, ax, seq=None):
+        """The two column-parallel input branches: y and the fp32 gelu gate
+        (over the whole sequence: :func:`copy_in`)."""
+        x = copy_in(x, ax, seq)
         y = x @ self._p("w_y", 1, ax)
         gate = F.gelu((x @ self._p("w_gate", 1, ax)).float(), approximate="tanh")
         return y, gate
 
-    def _out(self, h, gate, dtype, ax):
-        return reduce_from((h * gate).to(dtype) @ self._p("w_out", 0, ax), ax)
+    def _out(self, h, gate, dtype, ax, seq=None):
+        return reduce_out((h * gate).to(dtype) @ self._p("w_out", 0, ax), ax,
+                          seq)
 
-    def forward(self, x, policy: RunPolicy
+    def forward(self, x, policy: RunPolicy, seq=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Over a whole sequence x (B,S,d) from a zero state. Returns the
         output and the decode cache {'h': (B,w) fp32, 'conv': the last
         cw - 1 inputs of the conv (fewer when S < cw - 1)}; under a mesh
-        w is this rank's channels."""
+        w is this rank's channels. With ``seq`` x and the output are this
+        rank's positions (the cache is the whole sequence's)."""
         ax = self._axis(policy)
-        y, gate = self._in(x, ax)
+        y, gate = self._in(x, ax, seq)
         a, gated = self._gates(self._conv_train(y, ax), ax)
         h = linear_scan(a, gated)
-        out = self._out(h, gate, x.dtype, ax)
+        out = self._out(h, gate, x.dtype, ax, seq)
         return out, {"h": h[:, -1], "conv": y[:, -(self.cfg.conv_width - 1):]}
 
     def decode(self, x, cache: Dict[str, torch.Tensor],

@@ -18,7 +18,10 @@ package computes it outside any ``pallas_call``.
 Under a mesh the heads split over the model axis (``wr``/``wk``/``wv``/
 ``wg`` column-parallel, ``wo`` row-parallel, ``u``, ``w0`` and the group
 norm per head); the channel mix splits d_ff (``wk`` column, ``wv`` row)
-and gathers the receptance, whose ``wr`` is column-sharded over d.
+and gathers the receptance, whose ``wr`` is column-sharded over d. Under
+sequence parallelism both mixes gather their input's sequence (the token
+shift reads the previous position, which may sit on the previous rank),
+run as above, and reduce-scatter their output on the sequence.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from repro_torch.models.parallel import (
     copy_to,
     gather_from,
     param_local,
-    reduce_from,
+    reduce_out,
+    scatter_to,
     split_local,
     tp_axis,
 )
@@ -192,11 +196,15 @@ class RwkvTimeMix(nn.Module):
                                       in_axis_size=1))
 
     def forward(self, x, policy: RunPolicy, x_prev: Optional[torch.Tensor] = None,
-                s0: Optional[torch.Tensor] = None
+                s0: Optional[torch.Tensor] = None, seq=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x (B,S,d); ``x_prev`` (B,d) the previous segment's last token and
         ``s0`` (B,H,hs,hs) fp32 its state (zeros when None). Returns the
-        output and {'s': the state after x, 'x_prev': x's last token}."""
+        output and {'s': the state after x, 'x_prev': x's last token}. With
+        ``seq`` x and the output are this rank's positions of a sequence
+        from its start."""
+        if seq is not None:
+            x = gather_from(x, 1, seq)
         B, S, d = x.shape
         hs = self.cfg.rwkv_head_size
         H = d // hs
@@ -227,7 +235,7 @@ class RwkvTimeMix(nn.Module):
         y = _head_groupnorm(y.reshape(B, S, Hl * hs),
                             param_local(self.ln_scale, 0, d, ax),
                             param_local(self.ln_bias, 0, d, ax), Hl)
-        out = reduce_from((y * g) @ param_local(self.wo, 0, d, ax), ax)
+        out = reduce_out((y * g) @ param_local(self.wo, 0, d, ax), ax, seq)
         return out, {"s": sT, "x_prev": x[:, -1]}
 
 
@@ -250,9 +258,12 @@ class RwkvChannelMix(nn.Module):
             w.copy_(dense_init(gen, tuple(w.shape), w.dtype))
 
     def forward(self, x, x_prev: Optional[torch.Tensor] = None,
-                policy: Optional[RunPolicy] = None
+                policy: Optional[RunPolicy] = None, seq=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B,S,d) -> (output, x's last token (B,d))."""
+        """x (B,S,d) -> (output, x's last token (B,d)); ``seq`` as the time
+        mix's."""
+        if seq is not None:
+            x = gather_from(x, 1, seq)
         d, f = self.wr.shape[0], self.cfg_d_ff
         ax = tp_axis(policy)
         axf = ax if split_local(f, ax) else None
@@ -261,6 +272,9 @@ class RwkvChannelMix(nn.Module):
         xk = x + sx * self.mu_k
         xr = x + sx * self.mu_r
         h = torch.square(F.relu(copy_to(xk, axf) @ param_local(self.wk, 1, f, axf)))
-        kv = reduce_from(h @ param_local(self.wv, 0, f, axf), axf)
+        kv = reduce_out(h @ param_local(self.wv, 0, f, axf), axf, seq)
         r = torch.sigmoid(copy_to(xr, axd) @ param_local(self.wr, 1, d, axd))
-        return gather_from(r, -1, axd) * kv, x[:, -1]
+        r = gather_from(r, -1, axd)
+        if seq is not None:
+            r = scatter_to(r, 1, seq)
+        return r * kv, x[:, -1]

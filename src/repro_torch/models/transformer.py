@@ -24,7 +24,12 @@ each block's module), the embedding and the logits are vocab-sharded (a
 masked local lookup plus an all-reduce, exact against the one-hot product;
 each rank's logits are its vocab slice), and :func:`loss_fn` takes the
 vocab-parallel cross-entropy and, under data parallelism, returns this
-rank's share of the global batch's loss.
+rank's share of the global batch's loss. Under sequence parallelism
+(``RunPolicy.sequence_parallel``, a sequence the model axis divides) the
+residual from the embedding to the final norm is this rank's positions:
+the embedding reduce-scatters (or slices) on the sequence, the blocks
+gather it where they need it whole, and the head gathers it back, so the
+logits and the loss see the whole sequence.
 """
 from __future__ import annotations
 
@@ -43,10 +48,13 @@ from repro_torch.models.moe import MoE, num_experts_eff
 from repro_torch.models.parallel import (
     all_gather,
     all_reduce_,
-    copy_to,
+    copy_in,
     dp_axis,
+    gather_from,
     local_slice,
     reduce_from,
+    reduce_out,
+    seq_axis,
     tp_axis,
 )
 from repro_torch.models.rglru import RgLru
@@ -90,46 +98,53 @@ class Block(nn.Module):
             self.ffn = MLP(cfg, dtype, device)
 
     def forward(self, x, policy: RunPolicy, positions):
-        """x (B,S,d) from the start of the sequence -> (x, this layer's
-        decode cache after it): {'k', 'v'} (a local layer's last W tokens as
-        a ring when S > W), {'h', 'conv'} or {'s', 'xa', 'xf'}."""
-        h = self.norm1(x)
+        """x (B,S,d) from the start of the sequence at ``positions`` (S,) ->
+        (x, this layer's decode cache after it): {'k', 'v'} (a local
+        layer's last W tokens as a ring when S > W), {'h', 'conv'} or {'s',
+        'xa', 'xf'}. Under sequence parallelism x is this rank's positions
+        and the cache the whole sequence's."""
+        S = positions.shape[-1]
+        seq = seq_axis(policy, S)
+        h = self.norm1(x, seq)
         if self.kind == "rwkv6":
-            mixed, c = self.mixer(h, policy)
+            mixed, c = self.mixer(h, policy, seq=seq)
             cache = {"s": c["s"], "xa": c["x_prev"]}
         elif self.kind == "rglru":
-            mixed, cache = self.mixer(h, policy)
+            mixed, cache = self.mixer(h, policy, seq=seq)
         else:
-            mixed, cache = self.mixer(h, policy, positions, window=self.window)
-            S, W = x.shape[1], self.window
+            mixed, cache = self.mixer(h, policy, positions, window=self.window,
+                                      seq=seq)
+            W = self.window
             if W and S > W:  # slot s holds the position that is s mod W
                 cache = {n: torch.roll(t[:, S - W:], S % W, dims=1)
                          for n, t in cache.items()}
         x = x + mixed
-        h = self.norm2(x)
+        h = self.norm2(x, seq)
         if self.kind == "rwkv6":
-            y, cache["xf"] = self.ffn(h, policy=policy)
+            y, cache["xf"] = self.ffn(h, policy=policy, seq=seq)
         else:
-            y = self.ffn(h, policy)
+            y = self.ffn(h, policy, seq=seq)
         return x + y, cache
 
     def forward_train(self, x, policy: RunPolicy, positions):
         """x (B,S,d) -> (x, this block's MoE load-balance loss, 0 for other
         ffns) with no decode cache (``_block_apply``)."""
-        h = self.norm1(x)
+        seq = seq_axis(policy, positions.shape[-1])
+        h = self.norm1(x, seq)
         if self.kind in ("rwkv6", "rglru"):
-            mixed, _ = self.mixer(h, policy)
+            mixed, _ = self.mixer(h, policy, seq=seq)
         else:
-            mixed, _ = self.mixer(h, policy, positions, window=self.window)
+            mixed, _ = self.mixer(h, policy, positions, window=self.window,
+                                  seq=seq)
         x = x + mixed
-        h = self.norm2(x)
+        h = self.norm2(x, seq)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.kind == "rwkv6":
-            y, _ = self.ffn(h, policy=policy)
+            y, _ = self.ffn(h, policy=policy, seq=seq)
         elif isinstance(self.ffn, MoE):
-            y, aux = self.ffn(h, policy, with_aux=True)
+            y, aux = self.ffn(h, policy, with_aux=True, seq=seq)
         else:
-            y = self.ffn(h, policy)
+            y = self.ffn(h, policy, seq=seq)
         return x + y, aux
 
     def decode(self, x, pos, cache, policy: RunPolicy):
@@ -207,12 +222,17 @@ class TransformerLM(nn.Module):
                                          self.head.w.dtype))
 
     # -------------------------------------------------------------- ends
-    def embed_in(self, tokens, positions, policy: Optional[RunPolicy] = None):
+    def embed_in(self, tokens, positions, policy: Optional[RunPolicy] = None,
+                 seq=None):
         """tokens (B,S) int, or (B,S,d) embeddings for an 'embeddings' arch.
         A vocab-sharded embedding (under a mesh, fewer rows than the vocab)
         looks up the tokens of this rank's rows, zeros elsewhere, and
-        all-reduces: the JAX package's one-hot einsum, exactly."""
+        all-reduces: the JAX package's one-hot einsum, exactly. With ``seq``
+        (sequence parallelism) the result is this rank's positions: the
+        reduce-scatter in place of the all-reduce, else a slice; a
+        sinusoidal table is taken at the sequence's ``positions`` (S,)."""
         cfg = self.cfg
+        ax = None
         if cfg.input_kind == "embeddings" and tokens.dim() == 3:
             x = tokens
         else:
@@ -222,19 +242,24 @@ class TransformerLM(nn.Module):
                 rows = tokens.long() - ax.rank * w.shape[0]
                 mine = (rows >= 0) & (rows < w.shape[0])
                 x = w[rows.clamp(0, w.shape[0] - 1)] * mine[..., None].to(w.dtype)
-                x = reduce_from(x, ax)
             else:
                 x = w[tokens.long()]
+        x = reduce_out(x, ax, seq)
         if cfg.pos_emb == "sinusoidal":
-            x = x + sinusoidal_table(positions, cfg.d_model).to(x.dtype)
+            table = sinusoidal_table(positions, cfg.d_model)
+            if seq is not None:
+                table = local_slice(table, 0, seq)
+            x = x + table.to(x.dtype)
         return x
 
-    def logits_out(self, x, policy: Optional[RunPolicy] = None):
+    def logits_out(self, x, policy: Optional[RunPolicy] = None, seq=None):
         """(B,S,d) -> fp32 logits (B,S,V); under a mesh with a vocab-sharded
-        head (or tied embedding), this rank's vocab slice."""
+        head (or tied embedding), this rank's vocab slice. With ``seq`` x
+        is this rank's positions and the logits the whole sequence's."""
         w = self.embed.w if self.cfg.tie_embeddings else self.head.w
         vdim = 0 if self.cfg.tie_embeddings else 1
-        x = copy_to(x, tp_axis(policy, w.shape[vdim] != self.cfg.vocab_size))
+        x = copy_in(x, tp_axis(policy, w.shape[vdim] != self.cfg.vocab_size),
+                    seq)
         if self.cfg.tie_embeddings:
             return torch.einsum("bsd,vd->bsv", x.float(), w.float())
         return torch.matmul(x.float(), w.float())
@@ -256,13 +281,17 @@ class TransformerLM(nn.Module):
     def _run(self, tokens, policy: RunPolicy, last_only=False):
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        x = self.embed_in(tokens, positions, policy)
+        seq = seq_axis(policy, tokens.shape[1])
+        x = self.embed_in(tokens, positions, policy, seq)
         caches = []
         for blk in self.layers:
             x, cache = blk(x, policy, positions)
             caches.append(cache)
-        x = self.final_norm(x)
-        return self.logits_out(x[:, -1:] if last_only else x, policy), caches
+        x = self.final_norm(x, seq)
+        if last_only:  # the last position is the last rank's
+            x = gather_from(x[:, -1:], 1, seq)[:, -1:]
+            seq = None
+        return self.logits_out(x, policy, seq), caches
 
     def forward_train(self, tokens, policy: Optional[RunPolicy] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -273,7 +302,8 @@ class TransformerLM(nn.Module):
         policy = policy or RunPolicy()
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        x = self.embed_in(tokens, positions, policy)
+        seq = seq_axis(policy, tokens.shape[1])
+        x = self.embed_in(tokens, positions, policy, seq)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
             if policy.remat and torch.is_grad_enabled():
@@ -282,7 +312,7 @@ class TransformerLM(nn.Module):
             else:
                 x, aux = blk.forward_train(x, policy, positions)
             aux_total = aux_total + aux
-        return self.logits_out(self.final_norm(x), policy), aux_total
+        return self.logits_out(self.final_norm(x, seq), policy, seq), aux_total
 
     @torch.inference_mode()
     def decode_step(self, tokens, pos, cache: List[Dict[str, torch.Tensor]],

@@ -27,6 +27,8 @@ from repro_torch.tree import leaves
 ROOT = Path(__file__).resolve().parent.parent
 CELLS = [("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
          ("yi-6b", "decode_32k"), ("rwkv6-1.6b", "long_500k")]
+SEQPAR = [("yi-6b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"),
+          ("yi-6b", "decode_32k")]
 REC_KEYS = {"arch", "shape", "mesh", "tag", "chips", "meta",
             "model_flops_global", "params", "active_params", "artifacts"}
 ART_KEYS = {"lower_s", "compile_s", "memory", "cost", "collectives"}
@@ -74,6 +76,14 @@ _WORLD = textwrap.dedent("""
                     layers=2, verbose=False)
     dryrun.run_cell("yi-6b", "long_500k", multi_pod=False, out_dir=out,
                     verbose=False)
+    # sequence parallelism beside the same cells without it
+    for arch, shape_name in %(seqpar)r:
+        for seqpar, tag in ((False, "unsplit"), (True, "seqpar")):
+            dryrun.run_cell(arch, shape_name, multi_pod=False, out_dir=out,
+                            layers=2, seqpar=seqpar, tag=tag, verbose=False)
+    res["cli_rc"] = dryrun.main(["--arch", "yi-6b", "--shape", "decode_32k",
+                                 "--layers", "2", "--seqpar", "--tag", "seqpar_cli",
+                                 "--out", out])
     end_world()
     json.dump(res, open(out + "/world.json", "w"))
 """)
@@ -82,7 +92,7 @@ _WORLD = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
-    (out / "world.py").write_text(_WORLD % {"cells": CELLS})
+    (out / "world.py").write_text(_WORLD % {"cells": CELLS, "seqpar": SEQPAR})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, str(out / "world.py"), str(out)],
                           env=env, cwd=ROOT, capture_output=True, text=True,
@@ -124,6 +134,56 @@ def test_full_width_cell_records(world, arch, shape):
     t = roofline.cell_terms(rec)
     assert t["dominant"] in ("compute", "memory", "collective")
     assert 0 < t["roofline_fraction"] <= 1.0
+
+
+def _record(out, tag, arch, shape):
+    return json.loads((out / tag / f"{arch}__{shape}__16x16.json").read_text())
+
+
+@pytest.mark.parametrize("arch,shape,art", [("yi-6b", "train_4k", "micro_grads"),
+                                            ("olmoe-1b-7b", "prefill_32k", "prefill")])
+def test_seqpar_records_against_the_baseline(world, arch, shape, art):
+    """Under ``--seqpar`` the blocks reduce-scatter and all-gather on the
+    sequence; the FLOPs stay within 1 % of the baseline's and the peak
+    memory is no higher (lower for the train cell: the remat'd blocks keep
+    1/16 of their inputs). The ring model prices an all-reduce as an
+    all-gather plus a reduce-scatter of its shard, so the train cell's wire
+    bytes are the baseline's but for the remat recompute, which gathers
+    each block's seq-split input once more (the baseline's recompute reads
+    its saved whole input): L all-gathers of a (rows, S, d) bf16 tensor."""
+    out, _ = world
+    base, sp = _record(out, "unsplit", arch, shape), _record(out, "seqpar", arch, shape)
+    assert sp["meta"]["sequence_parallel"] and "sequence_parallel" not in base["meta"]
+    a, b = base["artifacts"][art], sp["artifacts"][art]
+    by_op = b["collectives"]["by_op"]
+    assert by_op["reduce-scatter"]["count"] > 0 and by_op["all-gather"]["count"] > 0
+    assert b["cost"]["flops"] == pytest.approx(a["cost"]["flops"], rel=0.01)
+    peak_b, peak_a = (r["artifacts"][art]["memory"]["peak_bytes_est"]
+                      for r in (sp, base))
+    assert peak_b <= peak_a
+    if shape == "train_4k":
+        assert peak_b < peak_a
+        cfg = get_config(arch)
+        rows = sp["meta"]["micro"] // 16
+        regather = 2 * analysis.wire_bytes("all-gather", 16,
+                                           rows * 4096 * cfg.d_model * 2)
+        assert b["collectives"]["wire_bytes"] == pytest.approx(
+            a["collectives"]["wire_bytes"] + regather, rel=0.02)
+
+
+def test_seqpar_leaves_decode_unchanged(world):
+    """At one token per sequence nothing splits: the decode record under
+    --seqpar equals the one without it but for its trace seconds and tag."""
+    out, res = world
+    base = _record(out, "unsplit", "yi-6b", "decode_32k")
+    for tag in ("seqpar", "seqpar_cli"):
+        sp = _record(out, tag, "yi-6b", "decode_32k")
+        assert sp["tag"] == tag and sp["meta"] == dict(base["meta"],
+                                                        sequence_parallel=True)
+        for name, art in base["artifacts"].items():
+            for key in ("cost", "collectives", "memory"):
+                assert sp["artifacts"][name][key] == art[key], (tag, name, key)
+    assert res["cli_rc"] == 0
 
 
 def test_skipped_and_multi_pod_records(world):
