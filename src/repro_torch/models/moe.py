@@ -47,6 +47,7 @@ from repro_torch.models.parallel import (
     reduce_out,
     tp_axis,
 )
+from repro_torch.spans import SPANS
 
 
 def num_experts_eff(cfg, tp: int) -> int:
@@ -336,6 +337,7 @@ class MoE(nn.Module):
     def forward(self, x, policy: RunPolicy, with_aux: bool = False, seq=None):
         """y, or (y, the load-balance loss) with ``with_aux``; ``seq`` as
         :func:`moe_apply`'s."""
-        y, aux = moe_apply(self.cfg, self.params(), x, policy, tp=self.tp,
-                           seq=seq)
+        with SPANS.span("moe.block", x.shape[0] * x.shape[1]):
+            y, aux = moe_apply(self.cfg, self.params(), x, policy, tp=self.tp,
+                               seq=seq)
         return (y, aux) if with_aux else y

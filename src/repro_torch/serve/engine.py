@@ -39,7 +39,11 @@ charges of the unified-memory runtime match the JAX engine's bit for bit.
 **Timing.** :meth:`ServeEngine.now` is the modeled clock (``um.clock`` under
 a UnifiedMemory, the step index otherwise, plus idle time skipped by
 :meth:`advance_to`). ``arrival_time`` is recorded at enqueue, so TTFT
-includes the queueing delay before admission.
+includes the queueing delay before admission. Host-clock spans
+(:mod:`repro_torch.spans`) mark the step's parts: ``serve.step``,
+``serve.admit``, ``serve.prefill``, ``serve.pages``, ``serve.decode``,
+``serve.sync`` (the device-to-host copy of the sampled tokens alone) and
+``um.charge`` (each call into the charge model).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.attention import _causal_bias, _sdpa
 from repro_torch.models.layers import RunPolicy
 from repro_torch.serve.paged import PagedKVCache
+from repro_torch.spans import SPANS
 
 
 class SeqState(Enum):
@@ -223,7 +228,9 @@ class ServeEngine:
         if self.um is not None and running and self.admit_device_fraction > 0:
             demand = self._projected_kv_bytes(req) + sum(
                 self._projected_kv_bytes(r) for r in running)
-            if self.um.device_free() < self.admit_device_fraction * demand:
+            with SPANS.span("um.charge"):
+                free = self.um.device_free()
+            if free < self.admit_device_fraction * demand:
                 return False
         return True
 
@@ -342,7 +349,7 @@ class ServeEngine:
     def _preempt(self, req: Request) -> None:
         if self.um is not None:
             try:
-                with self._node_ctx(req.sid):
+                with SPANS.span("um.charge"), self._node_ctx(req.sid):
                     for band in self.cache.seq_views(req.sid):
                         self.um.demote(band)
             except HostSpillError:
@@ -376,10 +383,11 @@ class ServeEngine:
         for req in todo:
             if req.sid < 0:
                 continue
-            bands = self.cache.seq_views(req.sid)
-            if bands:
-                with self._node_ctx(req.sid):
-                    self.um.prefetch_async(bands)
+            with SPANS.span("um.charge"):
+                bands = self.cache.seq_views(req.sid)
+                if bands:
+                    with self._node_ctx(req.sid):
+                        self.um.prefetch_async(bands)
 
     # -------------------------------------------------------------- prefill
     def _prefill_step(self) -> int:
@@ -399,7 +407,8 @@ class ServeEngine:
             chunk = min(want, afford)
             if chunk <= 0:
                 continue
-            self._prefill_chunk_run(req, chunk)
+            with SPANS.span("serve.prefill", req.rid):
+                self._prefill_chunk_run(req, chunk)
             budget -= chunk
             chunks += 1
         return chunks
@@ -424,11 +433,15 @@ class ServeEngine:
         req.prefill_pos = e
         self.cache.commit_prefill(req.sid, e)
         if self.tp_plan is not None:
-            self.tp_plan.on_prefill(self, chunk)
+            with SPANS.span("um.charge"):
+                self.tp_plan.on_prefill(self, chunk)
         self.stats.prefill_chunks += 1
         if e == len(req.prompt):
             logits = model.logits_out(model.final_norm(x[:, -1:]))
-            req.generated.append(int(torch.argmax(logits[0, -1])))
+            top = torch.argmax(logits[0, -1])
+            with SPANS.span("serve.sync"):
+                tok = int(top)
+            req.generated.append(tok)
             if req.first_token_time is None:
                 req.first_token_time = self.now()
             req.state = SeqState.DECODING
@@ -491,10 +504,13 @@ class ServeEngine:
             x = x + blk.mixer.out_proj(o[:, None], pol)
             x = x + blk.ffn(blk.norm2(x), pol)
         logits = model.logits_out(model.final_norm(x))
-        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        top = torch.argmax(logits[:, 0], dim=-1)
+        with SPANS.span("serve.sync"):
+            nxt = top.cpu().numpy()
         self.cache.commit_token(sids, pos)
         if self.tp_plan is not None:
-            self.tp_plan.on_decode(self, B)
+            with SPANS.span("um.charge"):
+                self.tp_plan.on_decode(self, B)
         self.stats.decode_batches += 1
         self.stats.decode_tokens += B
         for r, t in zip(reqs, nxt):
@@ -523,6 +539,10 @@ class ServeEngine:
     def step(self) -> bool:
         """One engine step: admit/resume, chunked prefill, prefetch, decode.
         Returns True while any request is in flight."""
+        with SPANS.span("serve.step", self._steps):
+            return self._step()
+
+    def _step(self) -> bool:
         if self.fault_plan is not None:
             self._apply_faults()
         pre0 = self.stats.preempted
@@ -534,21 +554,27 @@ class ServeEngine:
             progress += 1
             if self._hold_admit == 0:
                 self._backoff = self.admit_backoff_steps
-        progress += self._admit()
+        with SPANS.span("serve.admit") as sp:
+            sp.tag = admitted = self._admit()
+        progress += admitted
         progress += self._prefill_step()
         decoding = self._in_state(SeqState.DECODING)
         if decoding:
-            batch = self._ensure_decode_pages(decoding)
+            with SPANS.span("serve.pages") as sp:
+                batch = self._ensure_decode_pages(decoding)
+                sp.tag = self.stats.preempted - pre0
             if batch:
                 self._prefetch_resumed()
-                self._decode_batch(batch)
+                with SPANS.span("serve.decode", len(batch)):
+                    self._decode_batch(batch)
                 progress += len(batch)
         # a preemption frees pages and a fault replay requeues work for the
         # next step: both count as progress
         progress += self.stats.preempted - pre0
         progress += self.stats.recovered_requests - rec0
         if self.um is not None:
-            self.um.sync()  # apply counter-driven delayed migrations
+            with SPANS.span("um.charge"):
+                self.um.sync()  # apply counter-driven delayed migrations
         self._steps += 1
         in_flight = self._in_flight()
         if in_flight and progress == 0:

@@ -26,6 +26,7 @@ from repro_torch.core import (Actor, BufferView, KernelBatch, MemPolicy,
                               UnifiedMemory, coalesce_runs, make_policy,
                               system_policy)
 from repro_torch.models.layout import HeadLayout
+from repro_torch.spans import SPANS
 
 
 class PagedKVCache:
@@ -186,14 +187,16 @@ class PagedKVCache:
             self.lengths[s] = p + 1
         if self.um is None:
             return
-        batch = KernelBatch()
-        for s in sid_list:
-            views = self.seq_views(s)
-            if views:
-                batch.launch(f"kv_seq{s}", reads=views, actor=Actor.GPU,
-                             node=self._node_of(s))
-        if len(batch):
-            self.um.launch_batch(batch)
+        with SPANS.span("um.charge") as sp:
+            batch = KernelBatch()
+            for s in sid_list:
+                views = self.seq_views(s)
+                if views:
+                    batch.launch(f"kv_seq{s}", reads=views, actor=Actor.GPU,
+                                 node=self._node_of(s))
+            sp.tag = len(batch)
+            if len(batch):
+                self.um.launch_batch(batch)
 
     # ------------------------------------------------------------- reads
     def gather_kv(self, sid: int, layer: int, length: int):
@@ -268,10 +271,12 @@ class PagedKVCache:
         if self.um is None:
             return
         # every resident page of the sequence in ONE tracked launch
-        views = self.seq_views(sid)
-        if views:
-            self.um.launch(f"kv_seq{sid}", reads=views, actor=Actor.GPU,
-                           node=self._node_of(sid))
+        with SPANS.span("um.charge") as sp:
+            views = self.seq_views(sid)
+            sp.tag = int(bool(views))
+            if views:
+                self.um.launch(f"kv_seq{sid}", reads=views, actor=Actor.GPU,
+                               node=self._node_of(sid))
 
     # ------------------------------------------------------------- views
     def batch_view(self, sids):
