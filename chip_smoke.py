@@ -26,7 +26,8 @@ sequence parallelism of the residual, and the int8 TP all-reduce;
 full-width yi-6b cut to 4 layers on a model 2 world of two processes,
 trained and prefilled with sequence parallelism against the same steps
 without it; full-width yi-6b decode from an int8 KV cache against the fp
-cache; no kernel either), the traffic harness (the burst
+cache; no kernel either), the serve engine's decode graphs against eager
+passes on reduced yi-6b and olmoe-1b-7b, the traffic harness (the burst
 preset over the reduced configs, and a node loss on the two-superchip
 cluster pool), and the benchmark harness (``repro_torch.bench.run``, whose
 ``kernels_micro`` launches every kernel, flash attention among them, with
@@ -45,7 +46,10 @@ same modules on the CPU, times each kernel at its main-path shape, and
 prints:
 
 * one JSON line per phase;
-* ``{"kernels": [...]}``: each kernel's launches on the main path, largest
+* ``{"kernels": [...]}``: each kernel's launches on the main path (for
+  paged_attention the wrapper's calls: a decode graph's capture records its
+  calls once and its replays make none; the serve phases' rows give the
+  launches on the card, replays included), largest
   error against its plain version at the main path's size, time, plain time,
   library time (where one PyTorch call computes the same) and least possible
   time;
@@ -147,6 +151,14 @@ SERVE_MOE = dict(SERVE, arch="olmoe-1b-7b")
 # one prompt that fits one prefill chunk: the paged engine and model.prefill
 # then route the same T tokens, so their capacity drops are the same
 MOE_DENSE_CHECK = dict(prompt_len=100, new_tokens=8, max_len=128)
+# decode graphs against eager passes, reduced configs: each phase adds
+# requests of 4-token prompts (their prefill ends in the step that admits
+# them), then runs 3 steps, so the decode batch is 1, 3, 8, then 64
+# sequences, each size new mid-run; no request finishes before the last step
+DECODE_GRAPHS = dict(archs=("yi-6b", "olmoe-1b-7b"),
+                     phases=((1, 3), (2, 3), (5, 3), (56, 3)), prompt_len=4,
+                     new_tokens=16, max_seqs=64, max_len=128, page_size=16,
+                     rtol=1e-5)  # final-norm rows, of each pass's max
 # the traffic harness: the burst preset (preempt/swap churn) over the
 # reduced configs, on the card and on the CPU with the same weights; then a
 # node loss under cluster_system on gh200_x2 (tests/test_fault_serve.py's
@@ -767,13 +779,70 @@ def phase_parity() -> None:
     emit("parity", configs=keys, bit_identical=True)
 
 
+class GraphLaunches:
+    """A serve engine's paged_attention launches on the card, replays of its
+    decode graphs included. The kernel's wrapper counts the calls made to it:
+    those of eager passes, and those a decode graph's capture records, which
+    run nothing. A shim over the engine's name counts the calls each graph's
+    capture records, and each replay of the graph for B launches as many.
+    ``undo()`` takes the shim and the engine's wrappers off."""
+
+    def __init__(self, eng):
+        import repro_torch.serve.engine as engine_mod
+
+        self._mod, self._eng = engine_mod, eng
+        self._inner = inner = engine_mod.paged_attention
+        self.held = {}  # B -> the calls recorded in the graph for B
+        self.eager = self.captured = self.replayed = 0
+        capture, decode_pass = eng._capture, eng._decode_pass
+
+        def shim(*args):
+            if torch.cuda.is_current_stream_capturing():
+                self.captured += 1
+            else:
+                self.eager += 1
+            return inner(*args)
+
+        def counted_capture(B):
+            n0 = self.captured
+            capture(B)
+            self.held[B] = self.captured - n0
+
+        def counted_pass(B):
+            n0 = eng.stats.decode_graph_replays
+            out = decode_pass(B)
+            if eng.stats.decode_graph_replays > n0:
+                self.replayed += self.held[B]
+            return out
+
+        engine_mod.paged_attention = shim
+        eng._capture, eng._decode_pass = counted_capture, counted_pass
+
+    @property
+    def on_card(self) -> int:
+        """Launches that ran on the card: eager calls and replayed ones."""
+        return self.eager + self.replayed
+
+    def undo(self) -> None:
+        self._mod.paged_attention = self._inner
+        del self._eng._capture, self._eng._decode_pass
+
+
 def run_serve(cfg, model, settings, time_ffn: bool = False):
     """Requests through ServeEngine over a KV pool under the unified-memory
     runtime, every launch counter set to 0 just before the run and read just
     after. Times prefill chunks and decode batches apart (each ends
-    synchronized), each paged_attention launch with CUDA events and, with
-    ``time_ffn``, each block's ffn in the decode batches. Returns the phase's
-    row, the launches and the last paged_attention call's inputs."""
+    synchronized) and, in the decode batches that ran eagerly (a size's first
+    batch), each paged_attention launch with CUDA events and, with
+    ``time_ffn``, each block's ffn: a replayed decode graph calls neither, so
+    their shares are of the eager batches' decode time. Checks the kernel
+    wrapper's calls and the launches on the card (:class:`GraphLaunches`)
+    against the engine's eager, captured and replayed passes. Returns the
+    phase's row, the wrapper's calls and the last decode batch's
+    paged_attention inputs (its last layer's pools, page-table rows and
+    lengths; a query of its shape drawn from a seed, since a replayed graph's
+    query lives inside the graph and its values do not change the kernel's
+    time)."""
     import dataclasses
 
     import repro_torch.serve.engine as engine_mod
@@ -792,39 +861,52 @@ def run_serve(cfg, model, settings, time_ffn: bool = False):
                for _ in range(settings["requests"])]
     rids = [eng.add_request(p, settings["new_tokens"]) for p in prompts]
 
-    spent = {"prefill": 0.0, "decode": 0.0}
+    spent = {"prefill": 0.0, "decode": 0.0, "eager": 0.0}
     last, events, ffn_events, in_decode = {}, [], [], [False]
+    batch_events, batch_ffn = [], []  # the current decode batch's
 
     def timed(fn, key):
         def run(*a):
             in_decode[0] = key == "decode"
+            replays = eng.stats.decode_graph_replays
             t = time.perf_counter()
             fn(*a)
             torch.cuda.synchronize()
-            spent[key] += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            spent[key] += dt
             in_decode[0] = False
+            if key == "decode":
+                last["B"] = len(a[0])
+                if eng.stats.decode_graph_replays == replays:  # eager
+                    spent["eager"] += dt
+                    events.extend(batch_events)
+                    ffn_events.extend(batch_ffn)
+                # a capturing batch's eager pass before the capture: dropped
+                batch_events.clear()
+                batch_ffn.clear()
         return run
 
     def recording(*args):
-        last["args"] = args
+        if torch.cuda.is_current_stream_capturing():
+            return real(*args)  # a decode graph's capture runs nothing
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
         out = real(*args)
         ev[1].record()
-        events.append(ev)
+        batch_events.append(ev)
         return out
 
     def ffn_timed(fwd):
         def run(x, policy):
-            if not in_decode[0]:
+            if not in_decode[0] or torch.cuda.is_current_stream_capturing():
                 return fwd(x, policy)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
             y = fwd(x, policy)
             ev[1].record()
-            ffn_events.append(ev)
+            batch_ffn.append(ev)
             return y
         return run
 
@@ -835,6 +917,7 @@ def run_serve(cfg, model, settings, time_ffn: bool = False):
             blk.ffn.forward = ffn_timed(blk.ffn.forward)
     real = engine_mod.paged_attention
     engine_mod.paged_attention = recording
+    graph_launches = GraphLaunches(eng)
     try:
         counters = zero_counters()
         t0 = time.perf_counter()
@@ -843,6 +926,7 @@ def run_serve(cfg, model, settings, time_ffn: bool = False):
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
     finally:
+        graph_launches.undo()
         engine_mod.paged_attention = real
         # the wrappers hold the engine, and the engine holds the model: drop
         # the cycle, so the model's memory goes when the caller drops it
@@ -850,18 +934,27 @@ def run_serve(cfg, model, settings, time_ffn: bool = False):
         if time_ffn:
             for blk in model.layers:
                 del blk.ffn.forward
-    st = eng.stats
-    check(st.decode_batches > 0 and launches["paged_attention"]
-          == st.decode_batches * cfg.num_layers,
-          f"paged_attention launched {launches['paged_attention']} times "
-          f"for {st.decode_batches} decode batches x {cfg.num_layers} layers")
+    st, n_layers = eng.stats, cfg.num_layers
+    eager = st.decode_batches - st.decode_graph_replays
+    before_first = min(st.decode_graph_captures, 1)  # the eager pass
+    calls = n_layers * (eager + before_first + st.decode_graph_captures)
+    check(st.decode_batches > 0 and launches["paged_attention"] == calls,
+          f"paged_attention called {launches['paged_attention']} times for "
+          f"{eager} eager passes, {before_first} before the first capture "
+          f"and {st.decode_graph_captures} captures x {n_layers} layers")
+    on_card = n_layers * (st.decode_batches + before_first)
+    check(graph_launches.on_card == on_card
+          and len(graph_launches.held) == st.decode_graph_captures,
+          f"paged_attention launched {graph_launches.on_card} times on the "
+          f"card ({graph_launches.replayed} in {st.decode_graph_replays} "
+          f"replays of graphs holding {graph_launches.held}), not {on_card}")
     for rid in rids:
         check(eng.requests[rid].done
               and len(out[rid]) == settings["new_tokens"],
               f"request {rid} ended with {len(out[rid])} tokens")
     prefill_tokens = int(sum(len(p) for p in prompts))
     kernel_ms = sum(a.elapsed_time(b) for a, b in events)
-    decode_ms = 1e3 * spent["decode"]
+    decode_ms, eager_ms = 1e3 * spent["decode"], 1e3 * spent["eager"]
     rep = um.report()
     row = dict(
         arch=cfg.name, params=cfg.param_count(), dtype="float32",
@@ -873,10 +966,13 @@ def run_serve(cfg, model, settings, time_ffn: bool = False):
         decode_tok_per_s=st.decode_tokens / spent["decode"],
         # each sequence of a decode batch gets one token from it
         per_token_latency_ms=decode_ms / st.decode_batches,
-        paged_attention_ms=kernel_ms,
-        paged_attention_share_of_decode=kernel_ms / decode_ms,
+        decode_eager_batches=eager, decode_eager_s=spent["eager"],
+        paged_attention_ms=kernel_ms, paged_attention_timed_calls=len(events),
+        paged_attention_share_of_eager_decode=kernel_ms / eager_ms,
         peak_device_bytes=torch.cuda.max_memory_allocated(),
-        launches=launches, stats=dataclasses.asdict(st),
+        launches=launches, paged_attention_on_card=graph_launches.on_card,
+        paged_attention_held_by_graph=graph_launches.held,
+        stats=dataclasses.asdict(st),
         umem_modeled=dict(hardware="GRACE_HOPPER", clock_s=um.clock,
                           traffic_total=rep["traffic_total"],
                           remote_access_share=rep["remote_access_share"]),
@@ -884,9 +980,16 @@ def run_serve(cfg, model, settings, time_ffn: bool = False):
     if time_ffn:
         ffn_ms = sum(a.elapsed_time(b) for a, b in ffn_events)
         row.update(decode_ffn_ms=ffn_ms, decode_ffn_calls=len(ffn_events),
-                   decode_ffn_share_of_decode=ffn_ms / decode_ms)
-    del eng, um
-    return row, launches, last["args"]
+                   decode_ffn_share_of_eager_decode=ffn_ms / eager_ms)
+    B = last["B"]
+    inputs = eng._inputs.views(B)
+    kp, vp = eng.cache.k_pools[-1], eng.cache.v_pools[-1]
+    q = torch.randn((B, eng.layout.n_q_eff, cfg.head_dim), dtype=kp.dtype,
+                    device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    args = (q, kp, vp, inputs["page_table"].clone(), inputs["lengths"].clone())
+    del eng, um, inputs
+    return row, launches, args
 
 
 def phase_serve():
@@ -1056,6 +1159,120 @@ def phase_serve_card_vs_cpu() -> None:
           f"card tokens {toks['cuda']} != cpu tokens {toks['cpu']}")
     emit("serve_card_vs_cpu", arch=cfg.name, requests=len(prompts),
          tokens_equal=True, tokens=toks["cuda"])
+
+
+def phase_decode_graphs() -> None:
+    """The serve engine's decode graphs against eager passes
+    (``DECODE_GRAPHS``): on each reduced config one engine replays a graph a
+    batch size, one runs every pass eagerly (its ``_decode_pass`` the layer
+    loop itself). Tokens must be equal and the final norm's rows within
+    ``rtol`` (whether they are bitwise equal is reported), the final norm
+    called once a pass; each size captured once, at its second batch, and
+    replayed from then; every step's wrapper calls and launches on the card
+    (:class:`GraphLaunches`) as its eager, captured and replayed passes
+    say."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    s = DECODE_GRAPHS
+    sizes = np.cumsum([added for added, _ in s["phases"]]).tolist()
+    for arch in s["archs"]:
+        cfg = get_config(arch).reduced()
+        n_layers = cfg.num_layers
+        model = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+        runs = {}
+        for mode in ("graphs", "eager"):
+            eng = ServeEngine(cfg, model, max_seqs=s["max_seqs"],
+                              max_len=s["max_len"], page_size=s["page_size"],
+                              prefill_chunk=512, device="cuda")
+            if mode == "eager":
+                eng._decode_pass = eng._decode_layers
+            launches = GraphLaunches(eng)
+            rows = []
+            hook = model.final_norm.register_forward_hook(
+                lambda m, a, out, rows=rows: rows.append(out.detach().clone()))
+            rng = np.random.default_rng(0)
+            steps = []  # (stats delta, wrapper calls, launches on the card)
+            try:
+                for added, n_steps in s["phases"]:
+                    for _ in range(added):
+                        eng.add_request(
+                            rng.integers(2, cfg.vocab_size, s["prompt_len"]),
+                            s["new_tokens"])
+                    for _ in range(n_steps):
+                        st0 = dataclasses.replace(eng.stats)
+                        calls0 = paged_attention.launches
+                        card0 = launches.on_card
+                        eng.step()
+                        st = eng.stats
+                        steps.append((
+                            (st.decode_batches - st0.decode_batches,
+                             st.decode_graph_captures
+                             - st0.decode_graph_captures,
+                             st.decode_graph_replays
+                             - st0.decode_graph_replays),
+                            paged_attention.launches - calls0,
+                            launches.on_card - card0))
+                torch.cuda.synchronize()
+            finally:
+                hook.remove()
+                launches.undo()
+            runs[mode] = (eng, rows, steps, launches.held)
+        (graphs, g_rows, g_steps, held), (eager, e_rows, e_steps, _) = \
+            runs["graphs"], runs["eager"]
+        toks = {rid: r.generated for rid, r in graphs.requests.items()}
+        check(toks == {rid: r.generated for rid, r in eager.requests.items()},
+              f"{arch}: graph replays' tokens differ from eager passes'")
+        check(len(g_rows) == len(e_rows)
+              == graphs.stats.decode_batches + len(graphs.requests),
+              f"{arch}: {len(g_rows)} and {len(e_rows)} final-norm calls for "
+              f"{graphs.stats.decode_batches} decode batches and "
+              f"{len(graphs.requests)} prompts")
+        worst, bitwise = 0.0, True
+        for a, b in zip(g_rows, e_rows):
+            check(a.shape == b.shape, f"{arch}: final-norm shapes differ")
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+            bitwise &= torch.equal(a, b)
+        check(worst <= s["rtol"],
+              f"{arch}: final-norm rows differ by {worst} of their max")
+        # each step decodes one batch; a size's second batch captures it
+        per_size = [(1, 0, 0), (1, 1, 1), (1, 0, 1)] * len(sizes)
+        check([d for d, _, _ in g_steps] == per_size,
+              f"{arch}: (batches, captures, replays) a step "
+              f"{[d for d, _, _ in g_steps]}, not {per_size}")
+        check([d for d, _, _ in e_steps] == [(1, 0, 0)] * len(per_size),
+              f"{arch}: the eager engine captured or replayed")
+        check(held == {b: n_layers for b in sizes},
+              f"{arch}: the graphs hold {held} paged_attention calls")
+        # wrapper calls: eager passes, the eager pass before the engine's
+        # first capture, captures; on the card: a pass a batch, and that one
+        captured = 0
+        for d, calls, card in g_steps:
+            batches, captures, replays = d
+            pre = int(captures > 0 and not captured)
+            captured += captures
+            want = n_layers * (batches - replays + pre + captures)
+            check(calls == want and card == n_layers * (batches + pre),
+                  f"{arch}: a step of {d} made {calls} calls and {card} "
+                  f"launches, not {want} and {n_layers * (batches + pre)}")
+        check([(calls, card) for _, calls, card in e_steps]
+              == [(n_layers, n_layers)] * len(e_steps),
+              f"{arch}: eager steps' calls and launches {e_steps}")
+        emit("decode_graphs", arch=cfg.name, batch_sizes=sizes,
+             tokens_equal=True, final_norm_bitwise_equal=bitwise,
+             final_norm_widest_rel_diff=worst,
+             captures=graphs.stats.decode_graph_captures,
+             replays=graphs.stats.decode_graph_replays,
+             decode_batches=graphs.stats.decode_batches,
+             calls=[c for _, c, _ in g_steps],
+             launches_on_card=[k for _, _, k in g_steps])
+        del runs, graphs, eager, g_rows, e_rows, model
+        torch.cuda.empty_cache()
 
 
 def greedy(model, toks, new: int):
@@ -2604,6 +2821,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu()
+    phase_decode_graphs()
     phase_recurrent()
     counters = zero_counters()  # the training paths launch none of the four
     phase_train()

@@ -23,7 +23,12 @@ driven by one ``step()`` per engine iteration:
      (``repro_torch.kernels.paged_attention``) over the pool. If the pool
      cannot back the batch's new-token pages, the youngest sequences are
      preempted: their KV is demoted host-side (``um.demote`` +
-     ``PagedKVCache.swap_out``) and written back on resume.
+     ``PagedKVCache.swap_out``) and written back on resume. On a CUDA
+     card the pass's layer loop is a CUDA graph, one a batch size,
+     captured at the second batch of that size and replayed from then; its
+     inputs are refilled at fixed addresses every step
+     (:class:`DecodeInputs`). The final norm, the head and the argmax run
+     eagerly on the graph's output.
 
 The engine runs on one device: the CUDA card unless the caller passes
 ``device="cpu"``, where the kernel's plain version runs. Attention archs
@@ -42,12 +47,15 @@ a UnifiedMemory, the step index otherwise, plus idle time skipped by
 includes the queueing delay before admission. Host-clock spans
 (:mod:`repro_torch.spans`) mark the step's parts: ``serve.step``,
 ``serve.admit``, ``serve.prefill``, ``serve.pages``, ``serve.decode``,
-``serve.sync`` (the device-to-host copy of the sampled tokens alone) and
-``um.charge`` (each call into the charge model).
+``serve.sync`` (the device-to-host copy of the sampled tokens alone),
+``serve.capture`` (a decode pass captured as a graph) and ``um.charge``
+(each call into the charge model). Spans inside the pass (``moe.block``)
+run only while it runs eagerly or is captured.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Dict, List, Optional
@@ -111,6 +119,73 @@ class EngineStats:
     spill_failures: int = 0
     admission_retries: int = 0  # admissions deferred by the post-fault hold
     lane_degraded_steps: int = 0
+    # how the decode passes ran (CUDA graphs on a card; zero on the CPU)
+    decode_graph_captures: int = 0
+    decode_graph_replays: int = 0
+
+    def modeled(self) -> Dict[str, int]:
+        """The counts of the modeled schedule, the same on every device:
+        every field but how the decode passes ran."""
+        out = dataclasses.asdict(self)
+        del out["decode_graph_captures"], out["decode_graph_replays"]
+        return out
+
+
+class DecodeInputs:
+    """The decode pass's inputs at fixed device addresses, so that a CUDA
+    graph captured once for a batch size reads every later batch's values:
+    for each of at most ``max_seqs`` sequences its last token, its position,
+    the keys it attends (the new one too), the new token's pool page and
+    slot, and its page-table row. One flat int32 buffer holds them; a
+    batch of B sequences reads the first B rows of each. ``fill`` writes a
+    host staging buffer (pinned on a card), zeroes the rows past the batch
+    (the null page, length 0), and copies it to the device in one copy on
+    the current stream that does not block the host."""
+
+    FIELDS = ("tokens", "positions", "lengths", "pages", "slots")
+
+    def __init__(self, max_seqs: int, pages_per_seq: int, device):
+        n = max_seqs
+        numel = n * (len(self.FIELDS) + pages_per_seq)
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(numel, dtype=torch.int32, pin_memory=cuda)
+        self.dev = (torch.zeros(numel, dtype=torch.int32, device=device)
+                    if cuda else self.host)
+        # the last copy out of the staging buffer (a card only)
+        self._copied = torch.cuda.Event() if cuda else None
+        f = len(self.FIELDS)
+        host = self.host.numpy()
+        self._host_cols = host[:f * n].reshape(f, n)
+        self._host_pt = host[f * n:].reshape(n, pages_per_seq)
+        self._cols = self.dev[:f * n].view(f, n)
+        self._pt = self.dev[f * n:].view(n, pages_per_seq)
+
+    def fill(self, tokens, positions, lengths, pages, slots, page_rows) -> None:
+        """Stage one batch (each argument holds B values, ``page_rows`` is
+        (B, pages_per_seq)) and copy it to the device."""
+        B = len(tokens)
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy has read the stage
+        cols = self._host_cols
+        for i, v in enumerate((tokens, positions, lengths, pages, slots)):
+            cols[i, :B] = v
+        cols[:, B:] = 0
+        self._host_pt[:B] = page_rows
+        self._host_pt[B:] = 0
+        if self.dev is not self.host:
+            self.dev.copy_(self.host, non_blocking=True)
+            self._copied.record()
+
+    def views(self, B: int) -> Dict[str, torch.Tensor]:
+        """The device views a batch of B reads: ``tokens`` and ``positions``
+        (B, 1), ``lengths``, ``pages`` and ``slots`` (B,), ``page_table``
+        (B, pages_per_seq); each contiguous, at the same address for every
+        batch of B."""
+        out = {k: self._cols[i, :B] for i, k in enumerate(self.FIELDS)}
+        out["tokens"] = out["tokens"].view(B, 1)
+        out["positions"] = out["positions"].view(B, 1)
+        out["page_table"] = self._pt[:B]
+        return out
 
 
 class ServeEngine:
@@ -161,6 +236,13 @@ class ServeEngine:
         self.watermark_pages = watermark_pages
         self.admit_device_fraction = admit_device_fraction
         self.stats = EngineStats()
+        self._inputs = DecodeInputs(max_seqs, self.cache.pages_per_seq,
+                                    self.device)
+        # B -> (CUDA graph of the decode pass for B sequences, its output)
+        self._graphs: Dict[int, tuple] = {}
+        self._sightings: Dict[int, int] = {}  # decode batches of each size
+        self._graph_pool = None
+        self._capture_stream = None
         self._needs_prefetch: List[Request] = []
         self._steps = 0
         self._idle_skipped = 0.0
@@ -481,28 +563,16 @@ class ServeEngine:
         return reqs
 
     def _decode_batch(self, reqs: List[Request]) -> None:
-        model, pol, dev = self.params, self.policy, self.device
-        cfg, lay = self.cfg, self.layout
+        model = self.params
         B = len(reqs)
         sids = [r.sid for r in reqs]
-        pos = [int(self.cache.lengths[r.sid]) for r in reqs]
-        tokens = torch.tensor([[r.generated[-1]] for r in reqs],
-                              dtype=torch.int32, device=dev)
-        posd = torch.tensor(pos, dtype=torch.int32, device=dev)[:, None]
-        pt, ln = self.cache.batch_view(sids)
-        ln = ln + 1  # the new token attends to itself
-        widx = self.cache.token_index(sids, pos)
-
-        x = model.embed_in(tokens, posd)
-        for i, blk in enumerate(model.layers):
-            q, k_new, v_new = blk.mixer.project_qkv(blk.norm1(x), posd)
-            # the new token's KV goes straight from the device into the pool
-            self.cache.write_token(widx, i, k_new[:, 0], v_new[:, 0])
-            o = paged_attention(q.reshape(B, lay.n_q_eff, cfg.head_dim),
-                                self.cache.k_pools[i], self.cache.v_pools[i],
-                                pt, ln)
-            x = x + blk.mixer.out_proj(o[:, None], pol)
-            x = x + blk.ffn(blk.norm2(x), pol)
+        pos = [int(self.cache.lengths[s]) for s in sids]
+        pages, slots = self.cache.token_slots(sids, pos)
+        # the new token attends to itself: lengths + 1
+        self._inputs.fill([r.generated[-1] for r in reqs], pos,
+                          [p + 1 for p in pos], pages, slots,
+                          self.cache.page_table[sids])
+        x = self._decode_pass(B)
         logits = model.logits_out(model.final_norm(x))
         top = torch.argmax(logits[:, 0], dim=-1)
         with SPANS.span("serve.sync"):
@@ -518,6 +588,75 @@ class ServeEngine:
             total = len(r.prompt) + len(r.generated)
             if len(r.generated) >= r.max_new_tokens or total >= self.max_len - 1:
                 self._finish(r)
+
+    def _decode_layers(self, B: int) -> torch.Tensor:
+        """The decode pass of a batch of B sequences, from the embedding
+        through the last block's residual add, on the static inputs
+        (:class:`DecodeInputs`): the body both run eagerly and captured."""
+        model, pol = self.params, self.policy
+        cfg, lay = self.cfg, self.layout
+        v = self._inputs.views(B)
+        posd, pt, ln = v["positions"], v["page_table"], v["lengths"]
+        widx = (v["pages"].long(), v["slots"].long())
+        x = model.embed_in(v["tokens"], posd)
+        for i, blk in enumerate(model.layers):
+            q, k_new, v_new = blk.mixer.project_qkv(blk.norm1(x), posd)
+            # the new token's KV goes straight from the device into the pool
+            self.cache.write_token(widx, i, k_new[:, 0], v_new[:, 0])
+            o = paged_attention(q.reshape(B, lay.n_q_eff, cfg.head_dim),
+                                self.cache.k_pools[i], self.cache.v_pools[i],
+                                pt, ln)
+            x = x + blk.mixer.out_proj(o[:, None], pol)
+            x = x + blk.ffn(blk.norm2(x), pol)
+        return x
+
+    def _decode_pass(self, B: int) -> torch.Tensor:
+        """The layer loop of a decode batch of B sequences. On a CUDA card a
+        replay of the graph captured for B (no padding: MoE capacity counts
+        the tokens routed together), captured at the second batch of B: a
+        size seen once runs eagerly, since a ramp of the batch through every
+        size (a warm-up, a load's lead-in) would capture each; on the CPU
+        the body itself. The output of a replay is the graph's static
+        tensor: read it before the next decode pass."""
+        if self.device.type != "cuda":
+            return self._decode_layers(B)
+        if B not in self._graphs:
+            self._sightings[B] = seen = self._sightings.get(B, 0) + 1
+            if seen < 2:
+                return self._decode_layers(B)
+            with SPANS.span("serve.capture", B):
+                self._capture(B)
+        graph, out = self._graphs[B]
+        graph.replay()
+        self.stats.decode_graph_replays += 1
+        return out
+
+    def _capture(self, B: int) -> None:
+        """Capture the pass for B as a CUDA graph on a side stream. Before
+        the engine's first capture one eager pass runs there: it sets up
+        that stream's cuBLAS handle and workspace and loads the kernels
+        (its KV writes are the replay's own). All the engine's graphs share
+        one memory pool: one replays at a time."""
+        first = self._graph_pool is None
+        if first:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        side = self._capture_stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            if first:
+                self._decode_layers(B)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = self._decode_layers(B)
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        self._graphs[B] = (graph, out)
+        self.stats.decode_graph_captures += 1
 
     def _finish(self, req: Request) -> None:
         req.state = SeqState.DONE

@@ -141,9 +141,13 @@ class PagedKVCache:
         j = int(holes[0]) if len(holes) else self.pages_per_seq
         return j * self.page_size
 
-    def _index(self, pids: np.ndarray, slots: np.ndarray):
+    @staticmethod
+    def _check_allocated(pids: np.ndarray) -> None:
         if not (pids != 0).all():
             raise RuntimeError("write into or read of an unallocated page")
+
+    def _index(self, pids: np.ndarray, slots: np.ndarray):
+        self._check_allocated(pids)
         return (torch.from_numpy(pids.astype(np.int64)).to(self.device),
                 torch.from_numpy(slots.astype(np.int64)).to(self.device))
 
@@ -166,16 +170,17 @@ class PagedKVCache:
         self.lengths[sid] = new_len
         self._touch(sid)
 
-    def token_index(self, sid_list, pos_list):
-        """Device (page, slot) indices of one new token per sequence, for
-        :meth:`write_token` (computed once per decode batch)."""
+    def token_slots(self, sid_list, pos_list):
+        """Host (page, slot) arrays of one new token per sequence, checked
+        against writes into an unallocated page (once per decode batch)."""
         pos = np.asarray(pos_list)
-        return self._index(self.page_table[np.asarray(sid_list),
-                                           pos // self.page_size],
-                           pos % self.page_size)
+        pids = self.page_table[np.asarray(sid_list), pos // self.page_size]
+        self._check_allocated(pids)
+        return pids, pos % self.page_size
 
     def write_token(self, index, layer: int, k, v) -> None:
-        """k, v: (B, N, D) new-token KV at ``index`` (:meth:`token_index`)."""
+        """k, v: (B, N, D) new-token KV at ``index``, a pair of (B,) int64
+        device tensors (the pages and slots of :meth:`token_slots`)."""
         self.k_pools[layer].index_put_(index, k)
         self.v_pools[layer].index_put_(index, v)
 
@@ -277,11 +282,3 @@ class PagedKVCache:
             if views:
                 self.um.launch(f"kv_seq{sid}", reads=views, actor=Actor.GPU,
                                node=self._node_of(sid))
-
-    # ------------------------------------------------------------- views
-    def batch_view(self, sids):
-        """The sequences' page-table rows and lengths as int32 tensors on
-        the pool's device."""
-        pt = torch.from_numpy(self.page_table[sids]).to(self.device)
-        ln = torch.from_numpy(self.lengths[sids]).to(self.device)
-        return pt, ln

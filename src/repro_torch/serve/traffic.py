@@ -29,7 +29,6 @@ metrics bit-for-bit (tests/test_torch_traffic.py pins this).
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -377,7 +376,7 @@ class TrafficSim:
                 tokens[f"{arch}/{rid}"] = list(r.generated)
             per_engine[arch] = {
                 "clock": eng.now(),
-                "stats": dataclasses.asdict(eng.stats),
+                "stats": eng.stats.modeled(),
                 "pool_bytes": self.pool_bytes[arch],
                 "um_report": (eng.um.report() if eng.um is not None
                               else None),

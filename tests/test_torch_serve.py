@@ -134,7 +134,10 @@ def _check_engine_matches_jax_engine(pair, name):
     assert paged_attention.launches == launches  # CPU tensors: plain version
     assert toks == jtoks
     assert all(len(t) == n_new for t in toks)
-    assert dataclasses.asdict(eng.stats) == dataclasses.asdict(jeng.stats)
+    assert eng.stats.modeled() == dataclasses.asdict(jeng.stats)
+    # the CPU runs every decode pass eagerly
+    assert (eng.stats.decode_graph_captures, eng.stats.decode_graph_replays
+            ) == (0, 0)
     # the SLO report reads the modeled timestamps (um.clock or step index)
     assert summarize(collect(eng)) == jax_summarize(jax_collect(jeng))
     if um is not None:
@@ -217,3 +220,83 @@ def test_launcher_serves_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "requests=3 tokens=15" in out
     assert "umem (modeled, GRACE_HOPPER)" in out
+
+
+# one request a step for five steps, each for six tokens, so the decode
+# batch is 1, 2, 3, 4, 5, 4, 3, 2, 1: it changes on every step; between
+# steps 2 and 3 the youngest sequence is preempted, and it resumes at
+# step 3 beside that step's new request
+VARYING_PROMPTS = (5, 9, 3, 12, 7)
+PREEMPT_AFTER_STEP = 2
+
+
+def _serve_varying(engine_cls, cfg, params, watch=None, **extra):
+    eng = engine_cls(cfg, params, max_seqs=5, max_len=64, page_size=8,
+                     prefill_chunk=32, **extra)
+    if watch is not None:
+        watch(eng)
+    rids = []
+    for step, n in enumerate(VARYING_PROMPTS):
+        rids.append(eng.add_request(np.arange(2, 2 + n) * (step + 3)
+                                    % cfg.vocab_size, max_new_tokens=6))
+        eng.step()
+        if step == PREEMPT_AFTER_STEP:
+            eng._preempt(eng.requests[rids[-1]])
+    while eng.step():
+        pass
+    return eng, [eng.requests[r].generated for r in rids]
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "olmoe-1b-7b"])
+def test_decode_inputs_follow_a_varying_batch(arch):
+    """The decode pass's static inputs as the CPU engine runs them: each
+    batch reads exactly its own sequences' tokens, positions, lengths,
+    write slots and page rows, every row past the batch is the null page
+    at length 0 (no finished or preempted sequence's rows stay), and the
+    tokens and counts equal the JAX engine's."""
+    jcfg, jparams, cfg, model = _pair(arch)
+    seen = []
+
+    def watch(eng):
+        run_batch, run_layers = eng._decode_batch, eng._decode_layers
+
+        def decode_batch(reqs):
+            seen.append({"sids": [r.sid for r in reqs],
+                         "rows": eng.cache.page_table[[r.sid for r in reqs]].copy(),
+                         "pos": eng.cache.lengths[[r.sid for r in reqs]].copy(),
+                         "last": [r.generated[-1] for r in reqs],
+                         "decoding": sorted(
+                             r.sid for r in eng.requests.values()
+                             if r.state.value == "decoding")})
+            return run_batch(reqs)
+
+        def decode_layers(B):
+            inp = eng._inputs
+            seen[-1].update(B=B, views={k: t.clone() for k, t in
+                                        inp.views(B).items()},
+                            host=inp.host.clone())
+            return run_layers(B)
+        eng._decode_batch, eng._decode_layers = decode_batch, decode_layers
+
+    _, jtoks = _serve_varying(JaxServeEngine, jcfg, jparams)
+    eng, toks = _serve_varying(ServeEngine, cfg, model, watch, device="cpu")
+    assert toks == jtoks
+    assert eng.stats.preempted == eng.stats.resumed == 1
+    Bs = [s["B"] for s in seen]
+    assert Bs == [1, 2, 3, 4, 5, 4, 3, 2, 1]
+    n, NP = eng.cache.max_seqs, eng.cache.pages_per_seq
+    for s in seen:
+        B, v = s["B"], s["views"]
+        assert sorted(s["sids"]) == s["decoding"]  # every decoding sequence
+        assert v["tokens"][:, 0].tolist() == s["last"]
+        assert v["positions"][:, 0].tolist() == s["pos"].tolist()
+        assert v["lengths"].tolist() == (s["pos"] + 1).tolist()
+        np.testing.assert_array_equal(v["page_table"].numpy(), s["rows"])
+        pages = s["rows"][np.arange(B), s["pos"] // eng.cache.page_size]
+        assert (pages != 0).all()
+        assert v["pages"].tolist() == pages.tolist()
+        assert v["slots"].tolist() == (s["pos"] % eng.cache.page_size).tolist()
+        cols = s["host"][:5 * n].view(5, n)
+        assert not cols[:, B:].any() and not s["host"][5 * n:].view(
+            n, NP)[B:].any()
+    assert eng.stats.decode_graph_replays == eng.stats.decode_graph_captures == 0
