@@ -3,7 +3,8 @@ result line.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
 its configuration file and traffic file (the paths the cell's config and
-traffic name), its limits in ``limits/<cell>.json`` and each metric's
+traffic name), the model module its configuration file names
+(``model.py``), its limits in ``limits/<cell>.json`` and each metric's
 reader in ``metrics/<name>.py``.
 """
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
-from cardbench.lib import check, metrics, serve, stats, trace, weights
+from cardbench.lib import check, metrics, model as models, serve, stats, trace
 from cardbench.lib import window as wnd
 
 HERE = Path(__file__).resolve().parent.parent
@@ -56,7 +57,7 @@ def run_cell(spec: dict, seed: int, seconds: float, traced: bool,
     torch.backends.cudnn.allow_tf32 = bool(cfg_file.get("tf32", False))
 
     marks = {"imports": time.perf_counter() - t_start}
-    sd = weights.make(cfg_file["arch"], seed, device)
+    sd = models.make_weights(cfg_file, seed, device)
     _sync(cuda)
     marks["weights"] = time.perf_counter() - t_start
     model, eng = serve.build_engine(cfg_file, sd, device)
@@ -65,7 +66,7 @@ def run_cell(spec: dict, seed: int, seconds: float, traced: bool,
     marks["engine"] = time.perf_counter() - t_start
     if prepare is not None:
         prepare(model, eng)
-    serve.warm_up(eng, cfg_file, seed)
+    serve.warm_up(eng, cfg_file, seed, traffic.get("warm_decode_sizes"))
     marks["warm_up"] = time.perf_counter() - t_start
     sess = serve.Session(eng, traffic, seed, cfg_file["arch"]["vocab_size"])
     tracer = None

@@ -3,11 +3,13 @@
 After the window has closed and the program's state is freed, a sample of
 the finished requests, drawn from the seed and holding the longest of
 them, is judged token by token: each served token's logit under the
-reference (``reference.py``, fp32, TF32 off, its weights made again from
-the seed) may lie below the reference's best logit at that position by at
-most the cell's limit (``served_logit_gap``, in logits). Served tokens are
-greedy, so a sound program's gap is rounding, and a token produced wrong
-reads as a gap of the size of the logits' spread.
+reference (the ``walk`` of the configuration's model module, ``model.py``;
+by default ``models/decoder.py`` over ``reference.py``; fp32, TF32 off, its
+weights made again from the seed) may lie below the reference's best logit
+at that position by at most the cell's limit (``served_logit_gap``, in
+logits). Served tokens are greedy, so a sound program's gap is rounding,
+and a token produced wrong reads as a gap of the size of the logits'
+spread.
 
 ``final_hidden_err`` is the widest relative gap, over the judged tokens,
 between the final norm's output that the program's pass gave (a forward
@@ -40,7 +42,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from cardbench.lib import reference, weights
+from cardbench.lib import model
 
 MANDATORY = ("served_logit_gap", "wrong_length", "counter_mismatch",
              "state_uncaptured")
@@ -85,32 +87,6 @@ def counts(sess, served: Dict[int, List[int]]) -> Dict[str, int]:
     return {"wrong_length": wrong, "counter_mismatch": mism}
 
 
-def _walk(cfg_file, sess, served, judged, seed, device, visit) -> None:
-    """Run the reference over the judged tokens, calling ``visit(rid, j,
-    final norm output, logits)`` for each."""
-    cfg = cfg_file["arch"]
-    W = weights.make(cfg, seed, device)
-    ref = reference.Reference(cfg, W, cfg_file.get("policy", {}).get(
-        "moe_capacity_factor", 1.25))
-    if cfg.get("num_experts", 0):
-        seqs = {q.rid: (q.prompt, served[q.rid]) for q in sess.reqs.values()}
-        need = set(judged)
-        last = max(i for i, s in enumerate(sess.steps)
-                   if need & ({c[0] for c in s.chunks} | set(s.decode)))
-        for rid, j, h, lg in ref.replay(
-                [{"chunks": s.chunks, "decode": s.decode} for s in sess.steps],
-                seqs, judged, last):
-            visit(rid, j, h, lg)
-    else:
-        for rid in judged:
-            prompt, toks = list(sess.reqs[rid].prompt), served[rid]
-            h, lg = ref.sequence(prompt + toks[:-1], slice(
-                len(prompt) - 1, len(prompt) + len(toks) - 1))
-            for j in range(len(toks)):
-                visit(rid, j, h[j], lg[j])
-    del ref, W
-
-
 def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
@@ -130,6 +106,7 @@ def judge(cfg_file, sess, served, seed: int, device, limits: dict,
     """{"correct", "checks": {name: {"value", "limit"}} of the compared
     numbers, "readings": every number}."""
     judged = sample(sess, seed)
+    walk = model.load(cfg_file).walk
     tf32 = torch.backends.cuda.matmul.allow_tf32
     ctrl = {}
     v = {"served_logit_gap": 0.0 if judged else math.inf}
@@ -158,11 +135,11 @@ def judge(cfg_file, sess, served, seed: int, device, limits: dict,
         if control and judged:
             torch.backends.cuda.matmul.allow_tf32 = True
             torch.backends.cudnn.allow_tf32 = True
-            _walk(cfg_file, sess, served, judged, seed, device, keep)
+            walk(cfg_file, sess, served, judged, seed, device, keep)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if judged:
-            _walk(cfg_file, sess, served, judged, seed, device, visit)
+            walk(cfg_file, sess, served, judged, seed, device, visit)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32

@@ -9,6 +9,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from cardbench.lib import model
+
 HERE = Path(__file__).resolve().parent.parent
 
 
@@ -25,6 +27,11 @@ class RunView:
     @property
     def cfg(self) -> dict:
         return self.cfg_file["arch"]
+
+    @property
+    def model(self):
+        """The configuration's model module (its counts)."""
+        return model.load(self.cfg_file)
 
     @property
     def window_s(self) -> float:

@@ -85,17 +85,34 @@ def build_engine(cfg_file: dict, state_dict, device):
     return model, eng
 
 
-def warm_up(eng, cfg_file: dict, seed: int) -> None:
+def warm_up(eng, cfg_file: dict, seed: int, decode_sizes=None) -> None:
     """The cell's decode batch sizes (max_seqs down to a few) and prefill
     chunks (whole and partial) once, before any timed request: short
     prompts for a full slot table, then one prompt of two chunks and a
-    bit. The warm-up's requests finish before the load starts."""
+    bit. With ``decode_sizes`` (lo, hi), the traffic file's
+    ``warm_decode_sizes``, hi short prompts (at most max_seqs) whose lengths
+    make their decode batches a ramp from hi down to lo, two batches of each
+    size, before the long prompt runs alone: a serving stack runs the batch
+    sizes its load will reach before the load, so that what the program
+    does at a size's first batches (on a card: a pass run eagerly, then a
+    CUDA graph captured) happens in set-up. The warm-up's requests finish
+    before the load starts."""
     e = cfg_file["engine"]
     vocab = cfg_file["arch"]["vocab_size"]
     rng = np.random.default_rng([int(seed) % 2 ** 63, 0xA11])
     n = e["max_seqs"]
-    for i in range(n):
-        eng.add_request(rng.integers(2, vocab, 3), 2 + i % 8)
+    if decode_sizes is None:
+        lengths = [2 + i % 8 for i in range(n)]
+    else:
+        lo, hi = int(decode_sizes[0]), min(int(decode_sizes[1]), n)
+        # the j-th request leaves after 2 (j + 1) decode batches (its first
+        # token comes from its prefill), the last lo of them together
+        lengths = [1 + 2 * (min(j, hi - lo) + 1) for j in range(hi)]
+    for k in lengths:
+        eng.add_request(rng.integers(2, vocab, 3), k)
+    if decode_sizes is not None:
+        while eng.step():
+            pass
     eng.add_request(rng.integers(2, vocab, 2 * e["prefill_chunk"] + 5), 2)
     while eng.step():
         pass

@@ -12,7 +12,7 @@ in chunks of 2**30 values from a ``torch.Generator`` on the device.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -53,9 +53,12 @@ def param_count(cfg: dict) -> int:
     return sum(math.prod(shape) for _, shape, _ in layout(cfg))
 
 
-def make(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The state dict for ``seed`` on ``device``, fp32."""
-    spec = layout(cfg)
+def make(cfg: dict, seed: int, device,
+         spec: Optional[List[Tuple[str, tuple, int]]] = None
+         ) -> Dict[str, torch.Tensor]:
+    """The state dict for ``seed`` on ``device``, fp32, of ``spec`` (a
+    model module's layout; default ``layout(cfg)``)."""
+    spec = layout(cfg) if spec is None else spec
     n_mat = sum(math.prod(s) for _, s, fan in spec if fan)
     n_norm = sum(math.prod(s) for _, s, fan in spec if not fan)
     gen = torch.Generator(device=device).manual_seed(int(seed) % 2 ** 63)

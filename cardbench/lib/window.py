@@ -3,7 +3,6 @@ from __future__ import annotations
 
 from typing import List
 
-from cardbench.lib import counts
 from cardbench.lib.h100 import HBM_BYTES_PER_S
 
 
@@ -61,23 +60,23 @@ def itls_ms(run) -> List[float]:
 
 
 def step_flops(run, s) -> float:
-    """Model FLOPs of one step (the rules of ``counts``)."""
-    cfg = run.cfg
+    """Model FLOPs of one step (the counts of the configuration's model
+    module)."""
+    cfg, m = run.cfg, run.model
     f = 0.0
     for rid, a, b in s.chunks:
-        f += counts.span_flops(cfg, a, b)
+        f += m.span_flops(cfg, a, b)
         if b == len(run.sess.reqs[rid].prompt):
-            f += counts.head_flops(cfg)
+            f += m.head_flops(cfg)
     for n in s.decode_len:
-        f += counts.token_flops(cfg, n - 1) + counts.head_flops(cfg)
+        f += m.token_flops(cfg, n - 1) + m.head_flops(cfg)
     return f
 
 
 def paged_bound_s(run, steps) -> float:
     """Byte-bound seconds of every paged-attention call of ``steps``: one a
-    layer a decode batch."""
-    L = run.cfg["num_layers"]
-    return sum(L * counts.paged_attention_bytes(run.cfg, s.decode_len)
+    layer a decode batch (the model module's ``paged_bytes`` a pass)."""
+    return sum(run.model.paged_bytes(run.cfg, s.decode_len)
                for s in steps if s.decode) / HBM_BYTES_PER_S
 
 

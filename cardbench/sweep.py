@@ -48,7 +48,7 @@ def main(argv=None) -> int:
 
     torch.set_num_threads(1)
 
-    from cardbench.lib import bench, metrics, serve, stats, weights, window
+    from cardbench.lib import bench, metrics, model, serve, stats, window
 
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -60,14 +60,15 @@ def main(argv=None) -> int:
     if spec["traffic"]["loop"] != "open":
         print("the sweep is for open-loop cells", file=sys.stderr)
         return 2
-    sd = weights.make(cfg_file["arch"], args.seed, "cuda")
+    sd = model.make_weights(cfg_file, args.seed, "cuda")
     for rate in [float(r) for r in args.rates.split(",")]:
         traffic = copy.deepcopy(spec["traffic"])
         traffic["arrival"]["rate"] = rate
         if args.lead_in is not None:
             traffic["lead_in_s"] = args.lead_in
         model, eng = serve.build_engine(cfg_file, sd, "cuda")
-        serve.warm_up(eng, cfg_file, args.seed)
+        serve.warm_up(eng, cfg_file, args.seed,
+                      traffic.get("warm_decode_sizes"))
         sess = serve.Session(eng, traffic, args.seed,
                              cfg_file["arch"]["vocab_size"])
         in_sys = {}

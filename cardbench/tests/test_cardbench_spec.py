@@ -7,6 +7,8 @@ from pathlib import Path
 
 import pytest
 
+from cardbench.lib import model
+
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -41,6 +43,9 @@ def test_configs():
         assert body["name"] == c["name"] and body["reduced"] == c["reduced"]
         assert len(c["reduced"]) <= 16
         assert not any(WIDTH.search(k) for k in c["reduced"])
+        # its model module, where it names one, lies with the benchmark
+        assert body.get("model", "cardbench/models/").startswith("cardbench/models/")
+        assert callable(model.load(body).walk)
     assert len({c["file"] for c in BENCH["configs"]}) == len(BENCH["configs"])
 
 
