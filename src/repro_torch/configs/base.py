@@ -59,6 +59,15 @@ class ArchConfig:
     qk_norm: bool = False
     pos_emb: str = "rope"  # rope | sinusoidal | none
     rope_theta: float = 10_000.0
+    # YaRN on the global 'attention' layers of a pattern with 'local' ones
+    # (Hugging Face's ``_compute_yarn_parameters``, truncated bounds); the
+    # local layers keep plain rope at rope_theta. 0 => plain rope everywhere.
+    # Port-only fields: the JAX package's ArchConfig has none of them.
+    yarn_factor: float = 0.0
+    yarn_original_max_len: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_attention_factor: float = 1.0
     tie_embeddings: bool = False
 
     # MoE
@@ -80,6 +89,8 @@ class ArchConfig:
     input_kind: str = "tokens"
 
     def __post_init__(self):
+        # a pattern read from JSON comes as a list; keep the config hashable
+        object.__setattr__(self, "layer_pattern", tuple(self.layer_pattern))
         if self.mixer in ("attention", "rglru_hybrid"):
             if self.num_heads <= 0:
                 raise ValueError(f"{self.name}: attention needs num_heads > 0")

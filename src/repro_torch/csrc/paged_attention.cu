@@ -1,9 +1,11 @@
 // Decode attention over a paged KV pool: one query token per sequence, with
 // grouped-query heads. For sequence b and query head h (kv head
 // h / (H / Hkv)):
-//   out[b, h] = softmax_j(q[b, h] . k_j / sqrt(D)) v_j,  j < lengths[b],
-// where token j of sequence b lives at slot j % PS of pool page
-// page_table[b, j / PS] (src/repro/kernels/paged_attention/ref.py).
+//   out[b, h] = softmax_j(q[b, h] . k_j / sqrt(D)) v_j,  lo_b <= j < lengths[b],
+// with lo_b = max(0, lengths[b] - window) for a sliding window of `window`
+// keys and lo_b = 0 for window 0 (every key), where token j of sequence b
+// lives at slot j % PS of pool page page_table[b, j / PS]
+// (src/repro/kernels/paged_attention/ref.py).
 //
 // Replaces the Pallas TPU kernel `paged_attention_fwd`
 // (src/repro/kernels/paged_attention/paged_attention.py). That kernel walks a
@@ -24,7 +26,10 @@
 // - Pass 1, grid (B * Hkv, S) with S = ceil(NP * PS / CHUNK), CHUNK = 64
 //   tokens (four pages at the engine's PS = 16; any PS works). S is known on
 //   the host, so the launch needs no device-to-host sync. A block whose chunk
-//   starts at or past the length exits at once. A live block serves the
+//   starts at or past the length, or ends at or before lo_b, exits at once;
+//   the first live chunk of a window skips its tokens before lo_b (no copy,
+//   no score, no P V), so the pages that have left the window, which the
+//   engine has returned to its pool, are never read. A live block serves the
 //   kv head's `group` query heads over its chunk: it reads each page id once
 //   into a table of token row offsets (no division in a loop), stages q in
 //   fp32, and copies the chunk's K and V rows into shared memory with 16-byte
@@ -39,14 +44,16 @@
 //   with every P written. The partial (acc[D], m, l) of each
 //   (sequence, query head, chunk) goes to fp32 scratch that the wrapper
 //   allocates; the kernel allocates nothing.
-// - Pass 2, grid (B * H): over the live chunks s < ceil(length / CHUNK),
+// - Pass 2, grid (B * H): over the live chunks lo_b / CHUNK <= s <
+//   ceil(length / CHUNK),
 //   M = max m_s, L = sum l_s e^(m_s - M), out = sum acc_s e^(m_s - M) /
 //   max(L, 1e-30) in q's dtype. Empty chunks are never read, so M is finite
 //   wherever a chunk is live, and length 0 gives zeros, as in the Pallas
 //   kernel. With one live chunk this is the one-pass result up to
 //   summation order.
-// It reads no page past the length, and never the null page 0 of an
-// unallocated block. Pool offsets are 64-bit. No tensor cores and no TF32.
+// It reads no page past the length or before lo_b, and never the null page 0
+// of an unallocated block; at window 0 (lo_b = 0) every key is live, as
+// before windows. Pool offsets are 64-bit. No tensor cores and no TF32.
 //
 // Known limits: D in {16, 32, 64, 128, 256}; the pools must start on a
 // 16-byte boundary; q . k of a group's heads is scalar FMAs from shared
@@ -130,15 +137,18 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                      const int* __restrict__ page_table,
                      const int* __restrict__ lengths, float* __restrict__ part,
                      int B, int H, int Hkv, int PS, int NP, int S,
-                     float scale) {
+                     int window, float scale) {
   using G = Cfg<T, D>;
   constexpr int VEC = G::VEC, VPR = G::VPR;
   const int b = blockIdx.x / Hkv;
   const int kvh = blockIdx.x - b * Hkv;
   const int t0 = blockIdx.y * CHUNK;
   const int length = min(lengths[b], NP * PS);
-  if (t0 >= length) return;  // pass 2 reads only the live chunks
+  const int lo = window > 0 ? max(0, length - window) : 0;
+  // pass 2 reads only the live chunks
+  if (t0 >= length || t0 + CHUNK <= lo) return;
   const int ntok = min(CHUNK, length - t0);
+  const int ts = max(0, lo - t0);  // the chunk's first key in the window
   const int group = H / Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -152,13 +162,13 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   // each chunk token's row offset in the pool, one page-table read per page
   const int64_t slot_stride = (int64_t)Hkv * D;
   const int* row = page_table + (int64_t)b * NP;
-  const int p_first = t0 / PS, p_last = (t0 + ntok - 1) / PS;
+  const int p_first = (t0 + ts) / PS, p_last = (t0 + ntok - 1) / PS;
   for (int p = p_first + warp; p <= p_last; p += WARPS) {
     const int64_t page = row[p];
     const int base = p * PS - t0;  // chunk index of the page's slot 0
     for (int s = lane; s < PS; s += 32) {
       const int t = base + s;
-      if (t >= 0 && t < ntok)
+      if (t >= ts && t < ntok)
         tok[t] = (page * PS + s) * slot_stride + (int64_t)kvh * D;
     }
   }
@@ -171,14 +181,16 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   for (int it = 0; it < G::ITERS; ++it) {
     const int i = tid + it * THREADS;
     const int t = i / VPR, c = i % VPR;
-    if (t < ntok) cp_async16(ks + t * G::KP + c * 16, k_pool + tok[t] + c * VEC);
+    if (t >= ts && t < ntok)
+      cp_async16(ks + t * G::KP + c * 16, k_pool + tok[t] + c * VEC);
   }
   cp_async_commit();
 #pragma unroll
   for (int it = 0; it < G::ITERS; ++it) {
     const int i = tid + it * THREADS;
     const int t = i / VPR, c = i % VPR;
-    if (t < ntok) cp_async16(vs + t * G::VP + c * 16, v_pool + tok[t] + c * VEC);
+    if (t >= ts && t < ntok)
+      cp_async16(vs + t * G::VP + c * 16, v_pool + tok[t] + c * VEC);
   }
   cp_async_commit();
   cp_async_wait<1>();  // K has landed; V may still be in flight
@@ -194,7 +206,7 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int x = 0; x < 2; ++x) {
       const int t = lane + 32 * x;
       sv[x] = NEG_INF;
-      if (t < ntok) {
+      if (t >= ts && t < ntok) {
         const unsigned char* kr = ks + t * G::KP;
         float dot = 0.0f;
 #pragma unroll
@@ -212,7 +224,7 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    // mx is finite: the chunk holds at least one live token
+    // mx is finite: the chunk holds at least one key in the window
     const float p0 = expf(sv[0] - mx), p1 = expf(sv[1] - mx);
     float sum = p0 + p1;
 #pragma unroll
@@ -237,7 +249,7 @@ paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     float acc[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
-    for (int t = 0; t < ntok; ++t) {
+    for (int t = ts; t < ntok; ++t) {
       const float p = pr[t];
       float vv[VEC];
       unpack(*reinterpret_cast<const uint4*>(vs + t * G::VP + cv * 16), vv,
@@ -258,21 +270,24 @@ template <typename T>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 paged_combine_kernel(const float* __restrict__ part,
                      const int* __restrict__ lengths, T* __restrict__ out,
-                     int B, int H, int D, int PS, int NP, int S) {
+                     int B, int H, int D, int PS, int NP, int S,
+                     int window) {
   const int64_t bh = blockIdx.x;
   const int b = blockIdx.x / H;
   const int length = min(lengths[b], NP * PS);
   const int n = (length + CHUNK - 1) / CHUNK;  // live chunks, <= S
+  const int s0 = window > 0 ? max(0, length - window) / CHUNK : 0;
   const float* acc = part + bh * S * D;
   const float* ml = part + (int64_t)B * H * S * D + bh * S * 2;
   float M = NEG_INF;
-  for (int s = 0; s < n; ++s) M = fmaxf(M, ml[2 * s]);
+  for (int s = s0; s < n; ++s) M = fmaxf(M, ml[2 * s]);
   float L = 0.0f;
-  for (int s = 0; s < n; ++s) L += ml[2 * s + 1] * expf(ml[2 * s] - M);
+  for (int s = s0; s < n; ++s) L += ml[2 * s + 1] * expf(ml[2 * s] - M);
   const float inv = 1.0f / fmaxf(L, 1e-30f);
   for (int d = threadIdx.x; d < D; d += COMBINE_THREADS) {
     float o = 0.0f;
-    for (int s = 0; s < n; ++s) o = fmaf(acc[s * D + d], expf(ml[2 * s] - M), o);
+    for (int s = s0; s < n; ++s)
+      o = fmaf(acc[s * D + d], expf(ml[2 * s] - M), o);
     store(out + bh * D + d, o * inv);
   }
 }
@@ -281,7 +296,7 @@ template <typename T, int D>
 int launch_d(const void* q, const void* k_pool, const void* v_pool,
              const void* page_table, const void* lengths, void* out,
              void* part, int B, int H, int Hkv, int PS, int NP, int S,
-             cudaStream_t stream) {
+             int window, cudaStream_t stream) {
   const int bytes = smem_bytes<T, D>(H / Hkv);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   // the largest size set so far on each device: the attribute call costs
@@ -301,30 +316,33 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool,
   paged_partial_kernel<T, D><<<dim3((unsigned)(B * Hkv), (unsigned)S),
                                THREADS, bytes, stream>>>(
       (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int*)page_table,
-      (const int*)lengths, (float*)part, B, H, Hkv, PS, NP, S, scale);
+      (const int*)lengths, (float*)part, B, H, Hkv, PS, NP, S, window, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   paged_combine_kernel<T><<<(unsigned)(B * H), COMBINE_THREADS, 0, stream>>>(
-      (const float*)part, (const int*)lengths, (T*)out, B, H, D, PS, NP, S);
+      (const float*)part, (const int*)lengths, (T*)out, B, H, D, PS, NP, S,
+      window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* page_table, const void* lengths, void* out, void* part,
-           int B, int H, int Hkv, int D, int PS, int NP, int S, void* stream) {
-  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || PS <= 0 || NP < 0 ||
+           int B, int H, int Hkv, int D, int PS, int NP, int S, int window,
+           void* stream) {
+  if (B < 0 || window < 0 || H <= 0 || Hkv <= 0 || H % Hkv || PS <= 0 ||
+      NP < 0 ||
       (long long)NP * PS > 0x7fffffff ||
       S != (int)(((long long)NP * PS + CHUNK - 1) / CHUNK) || S > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_d<T, 16>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, s);
-    case 32: return launch_d<T, 32>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, s);
-    case 64: return launch_d<T, 64>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, s);
-    case 128: return launch_d<T, 128>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, s);
-    case 256: return launch_d<T, 256>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, s);
+    case 16: return launch_d<T, 16>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, window, s);
+    case 32: return launch_d<T, 32>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, window, s);
+    case 64: return launch_d<T, 64>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, window, s);
+    case 128: return launch_d<T, 128>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, window, s);
+    case 256: return launch_d<T, 256>(q, k_pool, v_pool, page_table, lengths, out, part, B, H, Hkv, PS, NP, S, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -334,22 +352,24 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // q, out: (B, H, D); k_pool, v_pool: (P, PS, Hkv, D), all contiguous on the
 // caller's current device, in fp32 (f32) or bf16 (bf16), the pools 16-byte
 // aligned; page_table: (B, NP) int32; lengths: (B,) int32; part: fp32
-// scratch of B * H * S * (D + 2) values, S = ceil(NP * PS / 64). Launches
+// scratch of B * H * S * (D + 2) values, S = ceil(NP * PS / 64); window:
+// the keys a sliding-window layer attends, 0 for every key. Launches
 // both passes on `stream` and returns the first non-zero cudaGetLastError().
 extern "C" int paged_attention_f32(const void* q, const void* k_pool,
                                    const void* v_pool, const void* page_table,
                                    const void* lengths, void* out, void* part,
                                    int B, int H, int Hkv, int D, int PS,
-                                   int NP, int S, void* stream) {
+                                   int NP, int S, int window, void* stream) {
   return launch<float>(q, k_pool, v_pool, page_table, lengths, out, part, B,
-                       H, Hkv, D, PS, NP, S, stream);
+                       H, Hkv, D, PS, NP, S, window, stream);
 }
 
 extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
                                     const void* v_pool, const void* page_table,
                                     const void* lengths, void* out, void* part,
                                     int B, int H, int Hkv, int D, int PS,
-                                    int NP, int S, void* stream) {
+                                    int NP, int S, int window,
+                                    void* stream) {
   return launch<__nv_bfloat16>(q, k_pool, v_pool, page_table, lengths, out,
-                               part, B, H, Hkv, D, PS, NP, S, stream);
+                               part, B, H, Hkv, D, PS, NP, S, window, stream);
 }

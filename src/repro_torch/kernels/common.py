@@ -37,7 +37,7 @@ SIGNATURES = {
     "qv_gate": {"qv_gate_c64": (_P, _I64, _I32, _I32, _P, _P)},
     "paged_attention": {
         name: (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-               _I32, _I32, _P)
+               _I32, _I32, _I32, _P)
         for name in ("paged_attention_f32", "paged_attention_bf16")},
     "flash_attention": {
         name: (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,

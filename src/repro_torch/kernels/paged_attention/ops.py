@@ -33,14 +33,17 @@ def split_plan(B: int, H: int, D: int, PS: int, NP: int) -> tuple:
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, page_table: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
     """Decode attention, one query token per sequence, over a paged KV pool.
 
     q: (B,H,D); k_pool/v_pool: (P,PS,Hkv,D), fp32 or bf16 like q;
     page_table: (B,NP) int32, the pool page of each sequence's j-th
     PS-token block, 0 (the null page) past its allocated pages; lengths:
-    (B,) int32, the tokens each sequence attends to. Query head h reads kv
-    head h // (H // Hkv). Returns (B,H,D) in q's dtype.
+    (B,) int32, the tokens each sequence attends to; with ``window`` > 0
+    only its last ``window`` of them (a sliding-window layer: positions
+    before ``length - window`` are not read, so their pages may be the null
+    page). Query head h reads kv head h // (H // Hkv). Returns (B,H,D) in
+    q's dtype.
 
     Lengths must be >= 1 for the two devices to agree: at length 0 the
     kernel returns zeros (as the JAX package's Pallas kernel does) and the
@@ -69,8 +72,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.dtype not in _ENTRY or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"q and pools must share fp32 or bf16, got {q.dtype}, "
                         f"{k_pool.dtype}, {v_pool.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, page_table, lengths)
+        return paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
+                                   window)
     for name, t, dt, nd in (("q", q, q.dtype, 3), ("k_pool", k_pool, q.dtype, 4),
                             ("v_pool", v_pool, q.dtype, 4),
                             ("page_table", page_table, torch.int32, 2),
@@ -89,7 +95,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         err = library().fns[_ENTRY[q.dtype]](
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part.data_ptr(), B, H, Hkv, D, PS, NP, S, stream_of(q))
+            part.data_ptr(), B, H, Hkv, D, PS, NP, S, int(window),
+            stream_of(q))
     check_launch("paged_attention", err)
     paged_attention.launches += 1
     return out

@@ -39,6 +39,7 @@ from repro_torch.models.layers import (
     require_no_mesh_options,
     rope_apply,
     row_parallel,
+    yarn_freqs,
 )
 from repro_torch.models.layout import HeadLayout
 from repro_torch.models.parallel import copy_in, copy_to, param_local, tp_axis
@@ -55,10 +56,13 @@ class Attention(nn.Module):
     (d, Hkv_eff, D), ``wo`` (Hq_eff, D, d); ``bq``/``bk``/``bv`` with
     ``qkv_bias``; ``q_norm``/``k_norm`` (D,) with ``qk_norm``."""
 
-    def __init__(self, cfg, layout: HeadLayout, dtype: torch.dtype, device):
+    def __init__(self, cfg, layout: HeadLayout, dtype: torch.dtype, device,
+                 kind: str = "attention"):
         super().__init__()
         self.cfg = cfg
         self.layout = layout
+        # YaRN rope on the global layers of a config that asks for it
+        self.yarn = cfg.yarn_factor > 0 and kind == "attention"
         d, hd = cfg.d_model, cfg.head_dim
         nq, nkv = layout.n_q_eff, layout.n_kv_eff
 
@@ -119,8 +123,10 @@ class Attention(nn.Module):
             q = head_rmsnorm(q, copy_to(self.q_norm, ax))
             k = head_rmsnorm(k, copy_to(self.k_norm, ax))
         if cfg.pos_emb == "rope":
-            q = rope_apply(q, positions, cfg.rope_theta)
-            k = rope_apply(k, positions, cfg.rope_theta)
+            yarn = ((yarn_freqs(cfg, x.device), cfg.yarn_attention_factor)
+                    if self.yarn else ())
+            q = rope_apply(q, positions, cfg.rope_theta, *yarn)
+            k = rope_apply(k, positions, cfg.rope_theta, *yarn)
         return q.reshape(B, S, k.shape[2], lay.p, cfg.head_dim), k, v
 
     def out_proj(self, o, policy: RunPolicy, seq=None):

@@ -2,6 +2,7 @@
 (the port of ``repro.models.layers``)."""
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -162,12 +163,49 @@ def _freqs(half: int, theta: float, device) -> torch.Tensor:
                                           device=device) / half)
 
 
-def rope_apply(x, positions, theta: float):
-    """x: (..., S, H, D); positions broadcastable to (..., S)."""
+def _yarn_inv(D: int, theta: float, factor: float, original: int,
+              beta_fast: float, beta_slow: float) -> torch.Tensor:
+    """YaRN's inverse frequencies (D // 2,) in fp32 on the host, as Hugging
+    Face's ``_compute_yarn_parameters`` computes them with truncated bounds:
+    the extrapolated (1 / theta^(2i/D)) and interpolated (÷ factor)
+    frequencies blended by a linear ramp between the correction dims of
+    ``beta_fast`` and ``beta_slow`` rotations over the original length."""
+    def corr_dim(rot):
+        return (D * math.log(original / (rot * 2 * math.pi))) \
+            / (2 * math.log(theta))
+
+    low = max(math.floor(corr_dim(beta_fast)), 0)
+    high = min(math.ceil(corr_dim(beta_slow)), D - 1)
+    pos_freqs = theta ** (torch.arange(0, D, 2, dtype=torch.float32) / D)
+    extra, inter = 1.0 / pos_freqs, 1.0 / (factor * pos_freqs)
+    ramp = torch.clamp((torch.arange(D // 2, dtype=torch.float32) - low)
+                       / ((high + 0.001 if high == low else high) - low), 0, 1)
+    keep = 1 - ramp  # the extrapolated share
+    return inter * (1 - keep) + extra * keep
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_freqs(cfg, device) -> torch.Tensor:
+    """``cfg``'s YaRN inverse frequencies on ``device``, made once a
+    config and device (a normal tensor even under inference mode); a CUDA
+    graph reads it."""
+    with torch.inference_mode(False):
+        return _yarn_inv(cfg.head_dim, float(cfg.rope_theta),
+                         float(cfg.yarn_factor), cfg.yarn_original_max_len,
+                         cfg.yarn_beta_fast, cfg.yarn_beta_slow).to(device)
+
+
+def rope_apply(x, positions, theta: float, freqs=None, scale: float = 1.0):
+    """x: (..., S, H, D); positions broadcastable to (..., S). ``freqs``
+    (D // 2,) replaces the inverse frequencies of ``theta`` (YaRN's) and
+    ``scale`` multiplies cos and sin (YaRN's attention factor)."""
     half = x.shape[-1] // 2
-    ang = positions.float()[..., None] * _freqs(half, theta, x.device)
+    inv = _freqs(half, theta, x.device) if freqs is None else freqs
+    ang = positions.float()[..., None] * inv
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     xf = x.float()
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -82,7 +82,7 @@ class Block(nn.Module):
         self.window = cfg.local_window if kind == "local" else 0
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
         if kind in ("attention", "local"):
-            self.mixer = Attention(cfg, layout, dtype, device)
+            self.mixer = Attention(cfg, layout, dtype, device, kind)
         elif kind == "rglru":
             self.mixer = RgLru(cfg, dtype, device)
         elif kind == "rwkv6":

@@ -32,7 +32,12 @@ driven by one ``step()`` per engine iteration:
 
 The engine runs on one device: the CUDA card unless the caller passes
 ``device="cpu"``, where the kernel's plain version runs. Attention archs
-only, dense or MoE: a MoE block's ``ffn`` routes the prefill chunk's
+only, dense or MoE, with global (``attention``) layers and optionally
+sliding-window (``local``) ones beside them: the window layers keep their
+own pool (``PagedKVCache(window=W)``, ``self.wcache``), whose pages that
+leave the window go back to its free stack at the start of each step
+(span ``kv.window``), and attend only their last W keys in prefill and
+decode. A MoE block's ``ffn`` routes the prefill chunk's
 tokens (T = chunk) or the decode batch's (T = B) with capacity-bounded
 dispatch, so its drops depend on the batch's composition (recurrent archs
 come with a later slice). ``fault_plan`` (a
@@ -48,7 +53,8 @@ includes the queueing delay before admission. Host-clock spans
 (:mod:`repro_torch.spans`) mark the step's parts: ``serve.step``,
 ``serve.admit``, ``serve.prefill``, ``serve.pages``, ``serve.decode``,
 ``serve.sync`` (the device-to-host copy of the sampled tokens alone),
-``serve.capture`` (a decode pass captured as a graph) and ``um.charge``
+``serve.capture`` (a decode pass captured as a graph), ``kv.window`` (the
+window pool's release of pages, tag: pages released) and ``um.charge``
 (each call into the charge model). Spans inside the pass (``moe.block``)
 run only while it runs eagerly or is captured.
 """
@@ -68,7 +74,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.attention import _causal_bias, _sdpa
 from repro_torch.models.layers import RunPolicy
-from repro_torch.serve.paged import PagedKVCache
+from repro_torch.serve.paged import PagedKVCache, window_pages
 from repro_torch.spans import SPANS
 
 
@@ -122,12 +128,26 @@ class EngineStats:
     # how the decode passes ran (CUDA graphs on a card; zero on the CPU)
     decode_graph_captures: int = 0
     decode_graph_replays: int = 0
+    # the window layers' pool (zero without one): pages returned as they
+    # left the window; summed at each decode batch, the pages the pool
+    # holds and those its layers would hold with every key; the most pages
+    # one sequence held there at a decode batch
+    window_pages_released: int = 0
+    window_pages_held: int = 0
+    window_pages_all_keys: int = 0
+    window_seq_pages_max: int = 0
+
+    NOT_MODELED = ("decode_graph_captures", "decode_graph_replays",
+                   "window_pages_released", "window_pages_held",
+                   "window_pages_all_keys", "window_seq_pages_max")
 
     def modeled(self) -> Dict[str, int]:
-        """The counts of the modeled schedule, the same on every device:
-        every field but how the decode passes ran."""
+        """The counts of the modeled schedule, the same on every device and
+        in the JAX engine: every field but how the decode passes ran and
+        the window pool's."""
         out = dataclasses.asdict(self)
-        del out["decode_graph_captures"], out["decode_graph_replays"]
+        for k in self.NOT_MODELED:
+            del out[k]
         return out
 
 
@@ -136,42 +156,52 @@ class DecodeInputs:
     graph captured once for a batch size reads every later batch's values:
     for each of at most ``max_seqs`` sequences its last token, its position,
     the keys it attends (the new one too), the new token's pool page and
-    slot, and its page-table row. One flat int32 buffer holds them; a
-    batch of B sequences reads the first B rows of each. ``fill`` writes a
-    host staging buffer (pinned on a card), zeroes the rows past the batch
-    (the null page, length 0), and copies it to the device in one copy on
-    the current stream that does not block the host."""
+    slot, and its page-table row; with ``window`` also the new token's
+    page and slot in the window layers' pool and its row there. One flat
+    int32 buffer holds them; a batch of B sequences reads the first B rows
+    of each. ``fill`` writes a host staging buffer (pinned on a card),
+    zeroes the rows past the batch (the null page, length 0), and copies it
+    to the device in one copy on the current stream that does not block
+    the host."""
 
     FIELDS = ("tokens", "positions", "lengths", "pages", "slots")
+    WINDOW_FIELDS = ("wpages", "wslots")
 
-    def __init__(self, max_seqs: int, pages_per_seq: int, device):
+    def __init__(self, max_seqs: int, pages_per_seq: int, device,
+                 window: bool = False):
         n = max_seqs
-        numel = n * (len(self.FIELDS) + pages_per_seq)
+        self.fields = self.FIELDS + (self.WINDOW_FIELDS if window else ())
+        self.tables = ("page_table",) + (("wpage_table",) if window else ())
+        f, t = len(self.fields), len(self.tables)
+        numel = n * (f + t * pages_per_seq)
         cuda = device.type == "cuda"
         self.host = torch.zeros(numel, dtype=torch.int32, pin_memory=cuda)
         self.dev = (torch.zeros(numel, dtype=torch.int32, device=device)
                     if cuda else self.host)
         # the last copy out of the staging buffer (a card only)
         self._copied = torch.cuda.Event() if cuda else None
-        f = len(self.FIELDS)
         host = self.host.numpy()
         self._host_cols = host[:f * n].reshape(f, n)
-        self._host_pt = host[f * n:].reshape(n, pages_per_seq)
+        self._host_pt = host[f * n:].reshape(t, n, pages_per_seq)
         self._cols = self.dev[:f * n].view(f, n)
-        self._pt = self.dev[f * n:].view(n, pages_per_seq)
+        self._pt = self.dev[f * n:].view(t, n, pages_per_seq)
 
-    def fill(self, tokens, positions, lengths, pages, slots, page_rows) -> None:
+    def fill(self, tokens, positions, lengths, pages, slots, page_rows,
+             *window) -> None:
         """Stage one batch (each argument holds B values, ``page_rows`` is
-        (B, pages_per_seq)) and copy it to the device."""
+        (B, pages_per_seq)) and copy it to the device; ``window``: the
+        window pool's pages, slots and page rows."""
         B = len(tokens)
         if self._copied is not None:
             self._copied.synchronize()  # the last copy has read the stage
         cols = self._host_cols
-        for i, v in enumerate((tokens, positions, lengths, pages, slots)):
+        vals = (tokens, positions, lengths, pages, slots) + window[:2]
+        for i, v in enumerate(vals):
             cols[i, :B] = v
         cols[:, B:] = 0
-        self._host_pt[:B] = page_rows
-        self._host_pt[B:] = 0
+        for i, rows in enumerate((page_rows,) + window[2:]):
+            self._host_pt[i, :B] = rows
+        self._host_pt[:, B:] = 0
         if self.dev is not self.host:
             self.dev.copy_(self.host, non_blocking=True)
             self._copied.record()
@@ -179,18 +209,21 @@ class DecodeInputs:
     def views(self, B: int) -> Dict[str, torch.Tensor]:
         """The device views a batch of B reads: ``tokens`` and ``positions``
         (B, 1), ``lengths``, ``pages`` and ``slots`` (B,), ``page_table``
-        (B, pages_per_seq); each contiguous, at the same address for every
+        (B, pages_per_seq), and with a window ``wpages``, ``wslots`` and
+        ``wpage_table``; each contiguous, at the same address for every
         batch of B."""
-        out = {k: self._cols[i, :B] for i, k in enumerate(self.FIELDS)}
+        out = {k: self._cols[i, :B] for i, k in enumerate(self.fields)}
         out["tokens"] = out["tokens"].view(B, 1)
         out["positions"] = out["positions"].view(B, 1)
-        out["page_table"] = self._pt[:B]
+        for i, k in enumerate(self.tables):
+            out[k] = self._pt[i, :B]
         return out
 
 
 class ServeEngine:
     def __init__(self, cfg, params, *, max_seqs: int = 8, max_len: int = 512,
-                 page_size: int = 64, num_pages: Optional[int] = None,
+                 page_size: int = 64,
+                 num_pages: "Optional[int] | Dict[str, int]" = None,
                  policy: Optional[RunPolicy] = None,
                  um: Optional[UnifiedMemory] = None, greedy: bool = True,
                  prefill_chunk: int = 128, watermark_pages: int = 0,
@@ -200,11 +233,16 @@ class ServeEngine:
                  admit_backoff_steps: int = 2, device=None):
         """``params`` is the :class:`~repro_torch.models.TransformerLM`;
         it must live on ``device`` (the CUDA card unless the caller passes
-        ``device="cpu"``)."""
+        ``device="cpu"``). ``num_pages`` sizes the KV pool, or with window
+        layers each pool by layer kind (``{"attention": n, "local": m}``;
+        a window pool left unsized holds ``max_seqs`` sequences' most)."""
         dev = resolve_device(device)
-        if cfg.mixer != "attention" or set(cfg.layer_kinds()) != {"attention"}:
+        kinds = cfg.layer_kinds()
+        if (cfg.mixer != "attention" or "attention" not in kinds
+                or not set(kinds) <= {"attention", "local"}):
             raise ValueError("paged serving with chunked prefill needs "
-                             "homogeneous global-attention archs")
+                             "global-attention archs (with or without "
+                             "sliding-window layers beside them)")
         if params.device.type != dev.type or dev.index not in (
                 None, params.device.index):
             raise ValueError(f"params live on {params.device}, the engine "
@@ -220,24 +258,41 @@ class ServeEngine:
         self.tp_plan = tp_plan
         seq_node = (tp_plan.node_of_seq if tp_plan is not None
                     and um is not None else None)
-        self.cache = PagedKVCache(cfg, self.layout, max_seqs=max_seqs,
-                                  max_len=max_len, page_size=page_size,
-                                  num_pages=num_pages,
-                                  dtype=params.final_norm.scale.dtype,
-                                  device=params.device, um=um,
-                                  counter_threshold=counter_threshold,
-                                  mem_policy=mem_policy, seq_node=seq_node)
+        self.prefill_chunk = max(1, prefill_chunk)
+        local = [i for i, k in enumerate(kinds) if k == "local"]
+        pages = num_pages if isinstance(num_pages, dict) else {
+            "attention": num_pages}
+
+        def pool(layers=None, window=0, n=None):
+            return PagedKVCache(cfg, self.layout, max_seqs=max_seqs,
+                                max_len=max_len, page_size=page_size,
+                                num_pages=n, dtype=params.final_norm.scale.dtype,
+                                device=params.device, um=um,
+                                counter_threshold=counter_threshold,
+                                mem_policy=mem_policy, seq_node=seq_node,
+                                layers=layers, window=window)
+        self.cache = pool(
+            [i for i, k in enumerate(kinds) if k == "attention"] if local
+            else None, n=pages.get("attention"))
+        self.wcache = None  # the window layers' pool
+        if local:
+            W = cfg.local_window
+            self.wcache = pool(local, W, pages.get("local") or (
+                max_seqs * window_pages(W, self.prefill_chunk, page_size) + 1))
+        self.pools = [p for p in (self.cache, self.wcache) if p is not None]
+        # model layer -> (the pool that holds it, its index there)
+        self._kv = [(p, p.layers.index(i)) for i in range(cfg.num_layers)
+                    for p in self.pools if i in p.layers]
         self.um = um
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
         self.greedy = greedy
         self.max_len = max_len
-        self.prefill_chunk = max(1, prefill_chunk)
         self.watermark_pages = watermark_pages
         self.admit_device_fraction = admit_device_fraction
         self.stats = EngineStats()
         self._inputs = DecodeInputs(max_seqs, self.cache.pages_per_seq,
-                                    self.device)
+                                    self.device, self.wcache is not None)
         # B -> (CUDA graph of the decode pass for B sequences, its output)
         self._graphs: Dict[int, tuple] = {}
         self._sightings: Dict[int, int] = {}  # decode batches of each size
@@ -295,17 +350,27 @@ class ServeEngine:
 
     def _projected_kv_bytes(self, req: Request) -> int:
         """KV bytes this request still has to materialize: its projected
-        footprint (prompt + max_new_tokens, capped at max_len) minus the
-        pool pages it already holds."""
+        footprint (prompt + max_new_tokens, capped at max_len; in a window
+        pool at most a decode step's pages) minus the pool pages it already
+        holds, over the pools."""
         total = min(self.max_len, len(req.prompt) + req.max_new_tokens)
-        have = (int(np.count_nonzero(self.cache.page_table[req.sid]))
-                if req.sid >= 0 else 0)
-        return max(0, self.cache.pages_for(total) - have) * self.cache.page_bytes
+        out = 0
+        for c in self.pools:
+            have = (int(np.count_nonzero(c.page_table[req.sid]))
+                    if req.sid >= 0 else 0)
+            out += max(0, c.cap_pages(c.pages_for(total)) - have) * c.page_bytes
+        return out
+
+    def _pages_free(self, pages: int, inflight: int) -> bool:
+        """Every pool can back ``pages`` of a sequence (as it holds them,
+        ``inflight`` tokens at once) above the watermark."""
+        return all(c.free_pages() >= c.cap_pages(pages, inflight)
+                   + self.watermark_pages for c in self.pools)
 
     # ----------------------------------------------------------- admission
     def _admission_ok(self, req: Request, running: List[Request]) -> bool:
         need = self.cache.pages_for(len(req.prompt)) + 1  # prompt + 1st decode
-        if self.cache.free_pages() < need + self.watermark_pages:
+        if not self._pages_free(need, self.prefill_chunk):
             return False
         if self.um is not None and running and self.admit_device_fraction > 0:
             demand = self._projected_kv_bytes(req) + sum(
@@ -325,7 +390,7 @@ class ServeEngine:
             if self.cache.free_slots() == 0:
                 break
             need = self.cache.pages_for(int(req.saved["len"]) + 1)
-            if self.cache.free_pages() < need + self.watermark_pages:
+            if not self._pages_free(need, 1):
                 break
             self._resume(req)
             running.append(req)
@@ -346,6 +411,8 @@ class ServeEngine:
             if not self._admission_ok(req, running):
                 break
             req.sid = self.cache.new_seq()
+            if self.wcache is not None:
+                self.wcache.new_seq(req.sid)
             req.state = SeqState.PREFILL
             if req.admit_time is None:
                 req.admit_time = self.now()
@@ -396,13 +463,15 @@ class ServeEngine:
         lost = self.um.fail_node(node)
         if self.tp_plan is not None:
             self.tp_plan = self.tp_plan.without_node(node)
-            self.cache.seq_node = self.tp_plan.node_of_seq
-        runs = lost.get(self.cache.alloc.name, [])
-        for sid in self.cache.seqs_touching_pages(runs):
-            req = next((r for r in self.requests.values()
-                        if r.sid == sid and not r.done), None)
-            if req is not None:
-                self._replay(req)
+            for c in self.pools:
+                c.seq_node = self.tp_plan.node_of_seq
+        for c in self.pools:
+            runs = lost.get(c.alloc.name, [])
+            for sid in c.seqs_touching_pages(runs):
+                req = next((r for r in self.requests.values()
+                            if r.sid == sid and not r.done), None)
+                if req is not None:
+                    self._replay(req)
         self._hold_admit = max(self._hold_admit, self._backoff)
         self._backoff = min(self._backoff * 2, 64)
 
@@ -413,7 +482,7 @@ class ServeEngine:
         self.stats.recovered_requests += 1
         self.stats.replayed_tokens += len(req.generated) + req.prefill_pos
         if req.sid >= 0:
-            self.cache.release(req.sid)
+            self._release(req.sid)
             req.sid = -1
         req.saved = None
         req.generated = []
@@ -432,8 +501,9 @@ class ServeEngine:
         if self.um is not None:
             try:
                 with SPANS.span("um.charge"), self._node_ctx(req.sid):
-                    for band in self.cache.seq_views(req.sid):
-                        self.um.demote(band)
+                    for c in self.pools:
+                        for band in c.seq_views(req.sid):
+                            self.um.demote(band)
             except HostSpillError:
                 # the KV cannot be saved host-side: drop it and recompute
                 # from the prompt
@@ -441,6 +511,8 @@ class ServeEngine:
                 self._replay(req)
                 return
         req.saved = self.cache.swap_out(req.sid)
+        if self.wcache is not None:
+            req.saved["window"] = self.wcache.swap_out(req.sid)
         req.sid = -1
         req.state = SeqState.PREEMPTED
         req.preemptions += 1
@@ -448,6 +520,8 @@ class ServeEngine:
 
     def _resume(self, req: Request) -> None:
         req.sid = self.cache.swap_in(req.saved)
+        if self.wcache is not None:
+            self.wcache.swap_in(req.saved["window"], req.sid)
         req.saved = None
         # a sequence preempted mid-prefill picks its prompt back up
         req.state = (SeqState.DECODING if req.prefill_pos == len(req.prompt)
@@ -466,7 +540,7 @@ class ServeEngine:
             if req.sid < 0:
                 continue
             with SPANS.span("um.charge"):
-                bands = self.cache.seq_views(req.sid)
+                bands = [b for c in self.pools for b in c.seq_views(req.sid)]
                 if bands:
                     with self._node_ctx(req.sid):
                         self.um.prefetch_async(bands)
@@ -482,10 +556,9 @@ class ServeEngine:
             # clamp the chunk to the pages the pool can back now, keeping
             # one page in reserve per decoding sequence
             reserve = len(self._in_state(SeqState.DECODING))
-            afford = (self.cache.allocated_until(req.sid)
-                      + max(0, self.cache.free_pages() - reserve)
-                      * self.cache.page_size
-                      - req.prefill_pos)
+            afford = min(c.allocated_until(req.sid)
+                         + max(0, c.free_pages() - reserve) * c.page_size
+                         for c in self.pools) - req.prefill_pos
             chunk = min(want, afford)
             if chunk <= 0:
                 continue
@@ -499,21 +572,28 @@ class ServeEngine:
         model, pol, dev = self.params, self.policy, self.device
         s = req.prefill_pos
         e = s + chunk
-        self.cache.alloc_range(req.sid, s, e)
+        for c in self.pools:
+            c.alloc_range(req.sid, s, e)
         toks = torch.as_tensor(req.prompt[s:e], device=dev)[None, :]
         positions = torch.arange(s, e, dtype=torch.int32, device=dev)
-        bias = _causal_bias(positions,
-                            torch.arange(e, dtype=torch.int32, device=dev), 0)
+        # keys [lo, e) of each pool: a window layer's chunk attends from
+        # the first query's window on
+        los = {c: c.live_from(req.sid) for c in self.pools}
+        bias = {c: _causal_bias(positions, torch.arange(
+            lo, e, dtype=torch.int32, device=dev), c.window)
+            for c, lo in los.items()}
         x = model.embed_in(toks, positions)
         for i, blk in enumerate(model.layers):
+            c, j = self._kv[i]
             q, k_new, v_new = blk.mixer.project_qkv(blk.norm1(x), positions)
-            self.cache.write_at(req.sid, i, k_new[0], v_new[0], s)
-            k_full, v_full = self.cache.gather_kv(req.sid, i, e)
-            o = _sdpa(q, k_full[None], v_full[None], bias)
+            c.write_at(req.sid, j, k_new[0], v_new[0], s)
+            k_full, v_full = c.gather_kv(req.sid, j, e, los[c])
+            o = _sdpa(q, k_full[None], v_full[None], bias[c])
             x = x + blk.mixer.out_proj(o, pol)
             x = x + blk.ffn(blk.norm2(x), pol)
         req.prefill_pos = e
-        self.cache.commit_prefill(req.sid, e)
+        for c in self.pools:
+            c.commit_prefill(req.sid, e)
         if self.tp_plan is not None:
             with SPANS.span("um.charge"):
                 self.tp_plan.on_prefill(self, chunk)
@@ -538,10 +618,9 @@ class ServeEngine:
         page-holder is shielded, so it always makes progress."""
         reqs = sorted(reqs, key=lambda r: r.rid)
         while True:
-            need = sum(1 for r in reqs
-                       if self.cache.missing_pages(
-                           r.sid, int(self.cache.lengths[r.sid]) + 1))
-            if need <= self.cache.free_pages():
+            if all(sum(1 for r in reqs if c.missing_pages(
+                    r.sid, int(c.lengths[r.sid]) + 1)) <= c.free_pages()
+                   for c in self.pools):
                 break
             holders = sorted(
                 (r for r in self.requests.values() if r.sid >= 0
@@ -559,7 +638,8 @@ class ServeEngine:
             if not reqs:
                 return reqs  # whole batch preempted; the oldest is prefilling
         for r in reqs:
-            self.cache.alloc_range(r.sid, 0, int(self.cache.lengths[r.sid]) + 1)
+            for c in self.pools:
+                c.alloc_range(r.sid, 0, int(c.lengths[r.sid]) + 1)
         return reqs
 
     def _decode_batch(self, reqs: List[Request]) -> None:
@@ -568,16 +648,26 @@ class ServeEngine:
         sids = [r.sid for r in reqs]
         pos = [int(self.cache.lengths[s]) for s in sids]
         pages, slots = self.cache.token_slots(sids, pos)
+        window = ()
+        if self.wcache is not None:
+            window = self.wcache.token_slots(sids, pos) + (
+                self.wcache.page_table[sids],)
+            held, every, most = self.wcache.usage()
+            self.stats.window_pages_held += held
+            self.stats.window_pages_all_keys += every
+            self.stats.window_seq_pages_max = max(
+                self.stats.window_seq_pages_max, most)
         # the new token attends to itself: lengths + 1
         self._inputs.fill([r.generated[-1] for r in reqs], pos,
                           [p + 1 for p in pos], pages, slots,
-                          self.cache.page_table[sids])
+                          self.cache.page_table[sids], *window)
         x = self._decode_pass(B)
         logits = model.logits_out(model.final_norm(x))
         top = torch.argmax(logits[:, 0], dim=-1)
         with SPANS.span("serve.sync"):
             nxt = top.cpu().numpy()
-        self.cache.commit_token(sids, pos)
+        for c in self.pools:
+            c.commit_token(sids, pos)
         if self.tp_plan is not None:
             with SPANS.span("um.charge"):
                 self.tp_plan.on_decode(self, B)
@@ -596,16 +686,22 @@ class ServeEngine:
         model, pol = self.params, self.policy
         cfg, lay = self.cfg, self.layout
         v = self._inputs.views(B)
-        posd, pt, ln = v["positions"], v["page_table"], v["lengths"]
-        widx = (v["pages"].long(), v["slots"].long())
+        posd, ln = v["positions"], v["lengths"]
+        # each pool's (write index, page table)
+        at = {self.cache: ((v["pages"].long(), v["slots"].long()),
+                           v["page_table"])}
+        if self.wcache is not None:
+            at[self.wcache] = ((v["wpages"].long(), v["wslots"].long()),
+                               v["wpage_table"])
         x = model.embed_in(v["tokens"], posd)
         for i, blk in enumerate(model.layers):
+            c, j = self._kv[i]
+            widx, pt = at[c]
             q, k_new, v_new = blk.mixer.project_qkv(blk.norm1(x), posd)
             # the new token's KV goes straight from the device into the pool
-            self.cache.write_token(widx, i, k_new[:, 0], v_new[:, 0])
+            c.write_token(widx, j, k_new[:, 0], v_new[:, 0])
             o = paged_attention(q.reshape(B, lay.n_q_eff, cfg.head_dim),
-                                self.cache.k_pools[i], self.cache.v_pools[i],
-                                pt, ln)
+                                c.k_pools[j], c.v_pools[j], pt, ln, c.window)
             x = x + blk.mixer.out_proj(o[:, None], pol)
             x = x + blk.ffn(blk.norm2(x), pol)
         return x
@@ -658,11 +754,15 @@ class ServeEngine:
         self._graphs[B] = (graph, out)
         self.stats.decode_graph_captures += 1
 
+    def _release(self, sid: int) -> None:
+        for c in self.pools:
+            c.release(sid)
+
     def _finish(self, req: Request) -> None:
         req.state = SeqState.DONE
         req.finish_time = self.now()
         if req.sid >= 0:
-            self.cache.release(req.sid)
+            self._release(req.sid)
             req.sid = -1
 
     # ------------------------------------------------------------------ run
@@ -687,6 +787,10 @@ class ServeEngine:
         pre0 = self.stats.preempted
         rec0 = self.stats.recovered_requests
         progress = 0
+        if self.wcache is not None:
+            with SPANS.span("kv.window") as sp:
+                sp.tag = released = self.wcache.trim()
+            self.stats.window_pages_released += released
         if self._hold_admit > 0:
             # the post-fault backoff window ticking down is forward motion
             self._hold_admit -= 1

@@ -109,12 +109,23 @@ def test_head_layout_expansion_matches_jax(n_q, n_kv, tp):
 
 
 def test_configs_match_jax():
+    """The port's ArchConfig is a superset of the JAX package's: the fields
+    they share are equal for every registered architecture (and its
+    reduced config), and the port-only fields (YaRN's) stay at their
+    defaults, so no registered architecture runs otherwise."""
     assert list_archs() == jax_list_archs()
+    ours = {f.name: f for f in dataclasses.fields(get_config("yi-6b"))}
+    jax_fields = {f.name for f in dataclasses.fields(jax_get_config("yi-6b"))}
+    assert jax_fields <= set(ours)
+    port_only = {k: f.default for k, f in ours.items() if k not in jax_fields}
+    assert port_only and all(k.startswith("yarn_") for k in port_only)
     for arch in list_archs():
         for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
                           (get_config(arch).reduced(),
                            jax_get_config(arch).reduced())):
-            assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+            got, want = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+            assert {k: got[k] for k in want} == want
+            assert {k: got[k] for k in port_only} == port_only
             assert cfg.param_count() == jcfg.param_count()
             assert cfg.layer_kinds() == jcfg.layer_kinds()
 

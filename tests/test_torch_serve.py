@@ -138,6 +138,11 @@ def _check_engine_matches_jax_engine(pair, name):
     # the CPU runs every decode pass eagerly
     assert (eng.stats.decode_graph_captures, eng.stats.decode_graph_replays
             ) == (0, 0)
+    # no window layers: no window pool, its counters untouched
+    assert eng.wcache is None and eng.pools == [eng.cache]
+    assert (eng.stats.window_pages_released, eng.stats.window_pages_held,
+            eng.stats.window_pages_all_keys, eng.stats.window_seq_pages_max
+            ) == (0, 0, 0, 0)
     # the SLO report reads the modeled timestamps (um.clock or step index)
     assert summarize(collect(eng)) == jax_summarize(jax_collect(jeng))
     if um is not None:
